@@ -1,13 +1,15 @@
 """distkeras_tpu_torch: the PyTorch/CUDA port of distkeras_tpu.
 
-This slice serves ``TransformerLM`` through ``DecodeEngine`` on an
-NVIDIA H100; the prefill attention runs a hand-written CUDA kernel
-(``ops/attention.py``, ``csrc/flash_attention_fwd.cu``).  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``, and raise
-when no card is present.  The package imports neither JAX nor
-``distkeras_tpu``.
+Two slices so far, on an NVIDIA H100: ``SingleTrainer`` trains
+``TransformerLM``, and ``DecodeEngine`` serves it.  Attention runs
+hand-written CUDA kernels, forward and backward (``ops/attention.py``,
+``csrc/flash_attention_*.cu``).  Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``, and raise when no card is present.
+The package imports neither JAX nor ``distkeras_tpu``.
 """
 
+from distkeras_tpu_torch.data import Dataset  # noqa: F401
 from distkeras_tpu_torch.models import (  # noqa: F401
     ModelSpec, TransformerLM, build_model, generate, model_config)
 from distkeras_tpu_torch.serving import DecodeEngine, ShedError  # noqa: F401
+from distkeras_tpu_torch.trainers import SingleTrainer, Trainer  # noqa: F401

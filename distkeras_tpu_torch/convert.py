@@ -17,7 +17,9 @@ port's ``state_dict``:
   ``lm_head.weight [V, d]``.
 
 Values stay f32 here; ``TransformerLM.load_state_dict`` casts each to
-its parameter's dtype.
+its parameter's dtype.  ``params_to_flax(state_dict, num_heads)`` is
+the reverse (f32 numpy leaves), so trained parameters can be compared
+with the JAX package's.
 """
 
 from __future__ import annotations
@@ -73,3 +75,54 @@ def params_from_flax(tree: Mapping) -> dict:
     sd.update(_layer_norm(tree["LayerNorm_0"], "ln_f"))
     sd.update(_dense(tree["lm_head"], "lm_head"))
     return sd
+
+
+def _np(x) -> np.ndarray:
+    return torch.as_tensor(x).detach().float().cpu().numpy()
+
+
+def _dense_to_flax(sd: Mapping, prefix: str, heads: int | None = None
+                   ) -> dict:
+    kernel = _np(sd[f"{prefix}.weight"]).T                    # [in, out]
+    bias = _np(sd[f"{prefix}.bias"])
+    if heads is not None:
+        kernel = kernel.reshape(kernel.shape[0], heads, -1)
+        bias = bias.reshape(heads, -1)
+    return {"kernel": kernel, "bias": bias}
+
+
+def _layer_norm_to_flax(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.scale"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def params_to_flax(state_dict: Mapping, num_heads: int) -> dict:
+    """The port's ``state_dict`` -> the JAX ``TransformerLM``'s
+    ``params`` tree (nested dicts of f32 numpy arrays), the reverse of
+    ``params_from_flax``.  ``num_heads`` splits the fused projections
+    into flax's ``[d, H, head_dim]`` kernels (the K/V head count follows
+    from the key projection's width)."""
+    sd = state_dict
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    d = sd["embed.weight"].shape[1]
+    hd = d // num_heads
+    tree = {"Embed_0": {"embedding": _np(sd["embed.weight"])},
+            "pos_embed": {"embedding": _np(sd["pos_embed.weight"])},
+            "LayerNorm_0": _layer_norm_to_flax(sd, "ln_f"),
+            "lm_head": _dense_to_flax(sd, "lm_head")}
+    for i in range(n_blocks):
+        pre = f"blocks.{i}"
+        kvh = sd[f"{pre}.attn.key.weight"].shape[0] // hd
+        att = {name: _dense_to_flax(sd, f"{pre}.attn.{name}", heads)
+               for name, heads in (("query", num_heads), ("key", kvh),
+                                   ("value", kvh))}
+        out = _np(sd[f"{pre}.attn.out.weight"]).T              # [H*hd, d]
+        att["out"] = {"kernel": out.reshape(num_heads, hd, -1),
+                      "bias": _np(sd[f"{pre}.attn.out.bias"])}
+        tree[f"Block_{i}"] = {
+            "LayerNorm_0": _layer_norm_to_flax(sd, f"{pre}.ln1"),
+            "LayerNorm_1": _layer_norm_to_flax(sd, f"{pre}.ln2"),
+            "SelfAttention_0": att,
+            "Dense_0": _dense_to_flax(sd, f"{pre}.mlp_in"),
+            "Dense_1": _dense_to_flax(sd, f"{pre}.mlp_out")}
+    return tree

@@ -1,0 +1,95 @@
+"""``Dataset``: a named-column table with DataFrame-shaped verbs.
+
+The port's copy of the in-memory part of ``distkeras_tpu/data/
+dataset.py`` (numpy only, so the same code): columns are numpy arrays
+aligned on the row axis, and ``shuffle`` draws the same permutation from
+the same seed, so a trainer of either package sees its batches in the
+same order.  The CSV and npz readers, the sharded (out-of-core) sets and
+the partitioning verbs are not ported yet (queue 3b in ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator, Mapping, Sequence
+
+import numpy as np
+
+
+class Dataset:
+    """Immutable dict of aligned columns."""
+
+    def __init__(self, columns: Mapping[str, np.ndarray]):
+        if not columns:
+            raise ValueError("Dataset needs at least one column")
+        cols = {k: np.asarray(v) for k, v in columns.items()}
+        n = {len(v) for v in cols.values()}
+        if len(n) != 1:
+            raise ValueError(
+                f"column lengths differ: "
+                f"{ {k: len(v) for k, v in cols.items()} }")
+        self._columns = cols
+        self._num_rows = n.pop()
+
+    # -- basic accessors ---------------------------------------------------
+
+    @property
+    def columns(self) -> dict[str, np.ndarray]:
+        return dict(self._columns)
+
+    @property
+    def column_names(self) -> list[str]:
+        return list(self._columns)
+
+    def __len__(self) -> int:
+        return self._num_rows
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self._columns[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._columns
+
+    def __repr__(self) -> str:
+        shapes = {k: v.shape for k, v in self._columns.items()}
+        return f"Dataset(rows={self._num_rows}, columns={shapes})"
+
+    # -- DataFrame-shaped verbs -------------------------------------------
+
+    def select(self, names: Sequence[str]) -> "Dataset":
+        return Dataset({k: self._columns[k] for k in names})
+
+    def with_column(self, name: str, values: np.ndarray) -> "Dataset":
+        cols = self.columns
+        cols[name] = np.asarray(values)
+        return Dataset(cols)
+
+    def map_column(self, name: str,
+                   fn: Callable[[np.ndarray], np.ndarray],
+                   out: str | None = None) -> "Dataset":
+        return self.with_column(out or name, fn(self._columns[name]))
+
+    def take(self, n: int) -> "Dataset":
+        return Dataset({k: v[:n] for k, v in self._columns.items()})
+
+    def shuffle(self, seed: int = 0) -> "Dataset":
+        perm = np.random.default_rng(seed).permutation(self._num_rows)
+        return Dataset({k: v[perm] for k, v in self._columns.items()})
+
+    # -- batching ----------------------------------------------------------
+
+    def batches(self, batch_size: int, *, columns: Sequence[str]
+                | None = None, drop_remainder: bool = True,
+                ) -> Iterator[dict[str, np.ndarray]]:
+        cols = ({k: self._columns[k] for k in columns}
+                if columns else self._columns)
+        stop = ((self._num_rows // batch_size) * batch_size
+                if drop_remainder else self._num_rows)
+        for start in range(0, stop, batch_size):
+            yield {k: v[start:start + batch_size]
+                   for k, v in cols.items()}
+
+    def num_batches(self, batch_size: int,
+                    drop_remainder: bool = True) -> int:
+        if drop_remainder:
+            return self._num_rows // batch_size
+        return -(-self._num_rows // batch_size)

@@ -5,7 +5,9 @@ GQA, the decode-mode KV cache, slot mode, ``cache_envelope``).
 Parameters are held in the compute dtype except the LayerNorm affines
 and ``lm_head``, which stay f32: flax casts its f32 parameters to the
 module dtype at every use, so casting once at load gives the same
-values.
+values.  Training keeps f32 master parameters apart
+(``workers.TrainState``) and casts them to these dtypes at each forward,
+as flax does.  ``init_params`` draws them as flax's initializers do.
 
 Decode mode keeps its KV cache as explicit tensors (``KVCache``)
 passed in and returned by ``forward``: per layer ``[B, KVH, L, D]``
@@ -35,6 +37,21 @@ def _unsupported(key: str, item: str):
     return NotImplementedError(
         f"{key} is not ported to distkeras_tpu_torch yet ({item} in "
         "ROADMAP.md)")
+
+
+# flax's truncated normal is cut at two standard deviations; this is the
+# std of the unit normal so cut, by which flax divides to keep the
+# requested std (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape, generator) -> torch.Tensor:
+    """flax ``lecun_normal`` for a torch ``[out, in]`` weight: truncated
+    normal of std ``in ** -0.5``."""
+    std = shape[1] ** -0.5 / _TRUNC_STD
+    w = torch.empty(shape)
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
 
 
 def dense_causal_attention(q, k, v, *, scale):
@@ -265,13 +282,45 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.decode, self.cache_envelope = decode, cache_envelope
         cd = self.compute_dtype
-        self.embed = nn.Embedding(vocab_size, d_model, dtype=cd)
-        self.pos_embed = nn.Embedding(max_len, d_model, dtype=cd)
-        self.blocks = nn.ModuleList(
-            Block(d_model, num_heads, mlp_ratio, num_kv_heads, cd)
-            for _ in range(num_layers))
-        self.ln_f = LayerNorm(d_model)
-        self.lm_head = nn.Linear(d_model, vocab_size, dtype=torch.float32)
+        # built on the meta device, so torch's own initializers draw
+        # nothing: the one draw is init_params', cast to each tensor's dtype
+        with torch.device("meta"):
+            self.embed = nn.Embedding(vocab_size, d_model, dtype=cd)
+            self.pos_embed = nn.Embedding(max_len, d_model, dtype=cd)
+            self.blocks = nn.ModuleList(
+                Block(d_model, num_heads, mlp_ratio, num_kv_heads, cd)
+                for _ in range(num_layers))
+            self.ln_f = LayerNorm(d_model)
+            self.lm_head = nn.Linear(d_model, vocab_size,
+                                     dtype=torch.float32)
+        own = self.state_dict()
+        self.load_state_dict({n: v.to(own[n].dtype)
+                              for n, v in self.init_params().items()},
+                             assign=True)
+
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> dict:
+        """f32 parameters on the CPU, drawn as the JAX package's flax
+        initializers draw them: ``nn.Embed`` tables N(0, 1/d); Dense
+        kernels ``lecun_normal`` (std ``fan_in ** -0.5``, truncated at
+        two standard deviations); biases 0; LayerNorm scale 1 and bias
+        0.  Keys and shapes are the ``state_dict``'s.  The draws come
+        from ``generator`` (default: torch's global one), so they differ
+        from the JAX package's: carry weights across with ``convert``."""
+        out = {}
+        for prefix, mod in self.named_modules():
+            pre = f"{prefix}." if prefix else ""
+            if isinstance(mod, nn.Embedding):
+                out[pre + "weight"] = torch.empty(mod.weight.shape).normal_(
+                    0.0, mod.embedding_dim ** -0.5, generator=generator)
+            elif isinstance(mod, nn.Linear):
+                out[pre + "weight"] = _lecun_normal(mod.weight.shape,
+                                                    generator)
+                out[pre + "bias"] = torch.zeros(mod.out_features)
+            elif isinstance(mod, LayerNorm):
+                out[pre + "scale"] = torch.ones(mod.scale.shape)
+                out[pre + "bias"] = torch.zeros(mod.bias.shape)
+        return out
 
     @property
     def kv_heads(self) -> int:

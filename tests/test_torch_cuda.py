@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA flash kernel
-against its plain version, and the serving path launching it.  They
-skip without a card (the kernel has no CPU mode).  The file imports
+"""Tests of the port that need an NVIDIA GPU: the CUDA flash kernels
+(forward and backward) against their plain versions, the serving path
+launching the forward kernel, and a training step through all three.
+They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -10,14 +11,24 @@ import numpy as np
 import pytest
 import torch
 
+from torch.func import functional_call
+
 from distkeras_tpu_torch import DecodeEngine, build_model, generate
 from distkeras_tpu_torch.models import model_config
 from distkeras_tpu_torch.ops import attention
+from distkeras_tpu_torch.ops.losses import categorical_crossentropy
 
 pytestmark = pytest.mark.cuda
 
 # bf16: one rounding of P and one of out; f32: summation order only
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# dq, dk, dv per element: |grad - plain| <= TOL_GRAD * (|plain| +
+# rms(plain)).  bf16: each side rounds its f32 sum once (half an ulp,
+# 2^-8 of |plain|), and a one-ulp flip of a rounded ds or p moves a sum
+# of many terms by a small share of its typical size, rms(plain); 2^-6
+# leaves twice that room.  f32: summation order and expf against
+# torch.exp
+TOL_GRAD = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -69,3 +80,86 @@ def test_engine_launches_the_kernel_and_matches_generate(card):
         want = generate(model, p[None], max_new_tokens=req["max_new_tokens"])
         np.testing.assert_array_equal(r["tokens"],
                                       want[0, len(p):].cpu().numpy())
+
+
+def _counts():
+    return (attention.launches, attention.bwd_dq_launches,
+            attention.bwd_dkv_launches)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_match_plain(card, dtype, causal, d):
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    q, k, v, dout = (torch.randn(2, 4, 200, d, device="cuda", dtype=dtype,
+                                 generator=gen) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = attention.flash_attention_reference(q, k, v, scale=scale,
+                                                   causal=causal)
+    before = _counts()
+    got = attention.flash_attention_bwd_bhtd(q, k, v, out, lse, dout,
+                                             scale=scale, causal=causal)
+    want = attention.flash_attention_bwd_reference(
+        q, k, v, out, lse, dout, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        a, b = a.float(), b.float()
+        rms = b.square().mean().sqrt()
+        ratio = ((a - b).abs() / (b.abs() + rms)).max().item()
+        assert ratio <= TOL_GRAD[dtype], (name, ratio, rms.item())
+
+
+def _grads(model, x, y):
+    """f32 master parameters cast to the module's dtypes, as the
+    training step casts them; returns their gradients by name."""
+    own = dict(model.named_parameters())
+    params = {n: p.detach().float().requires_grad_() for n, p in own.items()}
+    logits = functional_call(model, {n: p.to(own[n].dtype)
+                                     for n, p in params.items()}, (x,))
+    loss = categorical_crossentropy(logits, y)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return dict(zip(params, grads))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
+                                       ("bfloat16", 5e-2)])
+def test_train_step_gives_every_parameter_its_gradient(card, dtype, tol):
+    """A flash step on the card: every parameter, query/key/value
+    included, gets a gradient, each within ``tol`` (relative norm) of
+    the dense step's on the same weights, with one launch of each kernel
+    per layer.  bf16 allows 5e-2: the dense path rounds its logits to
+    bf16, the kernels keep them in f32.  The key biases get no gradient
+    in exact arithmetic (softmax ignores a shift common to all keys), so
+    theirs is rounding noise: it must stay below 1e-3 of the whole
+    gradient's norm in both steps."""
+    cfg = dict(vocab_size=256, num_layers=2, d_model=128, num_heads=2,
+               num_kv_heads=1, max_len=128, dtype=dtype)
+    torch.manual_seed(0)
+    flash = build_model(model_config("transformer_lm", (128,),
+                                     input_dtype="int32", flash_attn=True,
+                                     **cfg))
+    dense = build_model(model_config("transformer_lm", (128,),
+                                     input_dtype="int32", attn="dense",
+                                     **cfg))
+    dense.load_state_dict(flash.state_dict())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (4, 128))).cuda()
+    y = torch.from_numpy(rng.integers(0, 256, (4, 128))).cuda()
+    before = _counts()
+    got = _grads(flash, x, y)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 2 for c in before)
+    want = _grads(dense, x, y)
+    total = torch.stack([g.norm() for g in want.values()]).norm()
+    for name, g in got.items():
+        assert g is not None, name
+        if name.endswith("attn.key.bias"):
+            for x in (g, want[name]):
+                assert x.norm().item() <= 1e-3 * total.item(), name
+            continue
+        scale = max(want[name].norm().item(), 1e-3 * total.item())
+        assert (g - want[name]).norm().item() <= tol * scale, name
