@@ -5,9 +5,9 @@
 
 Phases, in order; any failure exits nonzero and prints no result:
 
-1. build every CUDA kernel of the serving and training paths from
-   ``csrc/`` (one ``nvcc`` per source, all started together) and print
-   the card's name and power limit;
+1. build every CUDA kernel of the serving, LM training and PS training
+   paths from ``csrc/`` (one ``nvcc`` per source, all started together)
+   and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (and a few more), with the tolerances below, and
    time kernel, plain version and the one PyTorch call that computes
@@ -32,7 +32,23 @@ Phases, in order; any failure exits nonzero and prints no result:
    every parameter within ``TOL_TRAIN_GRAD``; then step time, tokens/s,
    analytic MFU and the device's idle share over a few steps under
    ``torch.profiler``;
-5. print the kernel table as one JSON line, then the device line last.
+5. the PS training path: (a) hold both GroupNorm kernels against their
+   plain versions at every [B, HW, C, G] of ResNet-50's path (bf16 and
+   f32, ReLU on and off; ``TOL_GN*``), (b) time each per launch against
+   its byte bound, its plain version and ``F.group_norm``, (c) compare
+   step 1's gradients of ``norm="group_pallas"`` with ``norm="group"``
+   (``TOL_GN_GNORM``/``TOL_GN_GRAD``), (d) train ResNet-50-GroupNorm
+   (``scripts/perf_ps_flagship.py``'s model and round, not cut: 224 px,
+   s2d stem, bf16, 4 workers, window 2, batch 32) through
+   ``ADAG(fidelity="faithful")`` for 2 epochs of 4 rounds: 53
+   GroupNorms per step, so exactly 424 launches of each kernel per
+   round, finite and falling losses, each round's staleness a
+   permutation of 0..3, PS clock 4 x rounds; (e) one epoch of
+   ``AEASGD`` (the elastic rule) at smaller depth; (f) the trainer's
+   round time (its second epoch's wall over its rounds), step time,
+   images/s, MFU by analytic conv FLOPs, and one round of the trainer
+   under ``torch.profiler``: idle share and device time by class;
+6. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -358,10 +374,17 @@ def _by_class(kernels, wall, tag):
             "by_class_ms": classes, "top_kernels_ms": dict(top)}
 
 
+# the port's profiler ranges (``record_function``): their device-side
+# spans overlap the kernels inside them, so they are no kernels
+RANGES = ("optimizer_update", "ps_commits")
+
+
 def _device_kernels(prof, torch):
     kernels = {}
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(ev, "is_user_annotation", False) \
+                and ev.key not in RANGES:
             kernels[ev.key] = ev.self_device_time_total / 1e3
     if sum(kernels.values()) <= 0:
         raise SystemExit("profiler saw no device time")
@@ -607,6 +630,527 @@ def _flax_tree(rng, cfg):
     return tree
 
 
+# ---- phase 5: the PS training path (ResNet-50-GroupNorm, ADAG) -------
+
+# scripts/perf_ps_flagship.py's model and round, not cut: ResNet-50 on
+# 224 px ImageNet-shaped input, s2d stem, bf16 compute, f32 masters, 4
+# workers, window 2, batch 32, momentum SGD.  Two settings differ from
+# that script's defaults (norm="group", --lr 0.1 with no lr law):
+# norm="group_pallas" puts GroupNorm on the hand-written kernels, and
+# the rate is 0.05 divided by ADAG's measured law (lr_law="scale": lr /
+# num_workers) to 0.0125
+RESNET = dict(num_classes=1000, stage_sizes=(3, 4, 6, 3), bottleneck=True,
+              stem="space_to_depth", norm="group_pallas")
+IMAGE = 224
+PS = dict(num_workers=4, communication_window=2, batch_size=32,
+          worker_optimizer="momentum", fidelity="faithful",
+          loss="sparse_categorical_crossentropy")
+PS_LR = 0.05
+PS_ROWS, PS_EPOCHS = 1024, 2       # 4 rounds of 4 x 2 x 32 images per epoch
+AEASGD_STAGES, AEASGD_ROWS = (1, 1, 1, 1), 512
+# GroupNorm kernels against their plain versions, per element scaled by
+# |plain| + rms(plain), as the flash backward is held: f32 differs by
+# summation order only (mean and inv-std to ~1e-6 relative, carried
+# through the affine and the backward's group terms); bf16 may round an
+# element to the neighbouring value: one bf16 ulp of |y| (2^-7)
+TOL_GN = {"bfloat16": 2 ** -7, "float32": 1e-4}
+# mean: a sum of up to 25,088 f32 terms of size ~2 in another order
+# (absolute); inv-std: the same for E[x^2], then rsqrt (relative);
+# dgamma, dbeta per image: sums over HW in another order (per element,
+# scaled as above)
+TOL_GN_MEAN, TOL_GN_INV, TOL_GN_PARAM = 1e-5, 1e-5, 1e-4
+# step 1's gradients, norm="group_pallas" against norm="group" from the
+# same start on the same batch, in f32 (cuDNN without TF32): the global
+# norm within 1e-2 and each parameter within 5e-2 in norm, both
+# relative (floor: 1e-3 of the whole gradient's norm); the two differ by
+# summation order only (5e-5 on the CPU at 16 blocks).  In bf16 only the
+# global norm is held (1e-2): F.group_norm takes gamma in bf16 and both
+# sides round every activation and gradient to bf16 in their own way,
+# which moves the gradients of the first layers, sums with much
+# cancellation, by tens of percent against f32 on either side (the CPU
+# at 16 blocks); those numbers are printed, each side against f32
+TOL_GN_GNORM, TOL_GN_GRAD = 1e-2, 5e-2
+
+
+def _gn_counts(gn):
+    return {"group_norm_fwd": gn.fwd_launches,
+            "group_norm_bwd": gn.bwd_launches}
+
+
+def _reset_gn(gn):
+    gn.fwd_launches = gn.bwd_launches = gn.gradient_copies = 0
+
+
+def _resnet_shapes(model, batch, torch):
+    """One forward at ``batch`` with hooks: the GroupNorm calls as
+    ``{(B, HW, C, G, relu): count}`` and the analytic forward FLOPs of
+    one image (2 per multiply-add of every conv and of the head)."""
+    from distkeras_tpu_torch.models.layers import Conv, Dense
+    from distkeras_tpu_torch.models.resnet import AdaptiveGroupNorm
+
+    mix, flops, hooks = {}, [0.0], []
+
+    def on_norm(mod, inp, out):
+        x = inp[0]
+        key = (x.shape[0], x.shape[2] * x.shape[3], x.shape[1], mod.groups,
+               mod.relu)
+        mix[key] = mix.get(key, 0) + 1
+
+    def on_conv(mod, inp, out):
+        flops[0] += (2.0 * out.shape[1] * out.shape[2] * out.shape[3]
+                     * mod.weight[0].numel())
+
+    def on_dense(mod, inp, out):
+        flops[0] += 2.0 * mod.weight.numel()
+
+    for m in model.modules():
+        if isinstance(m, AdaptiveGroupNorm):
+            hooks.append(m.register_forward_hook(on_norm))
+        elif isinstance(m, Conv):
+            hooks.append(m.register_forward_hook(on_conv))
+        elif isinstance(m, Dense):
+            hooks.append(m.register_forward_hook(on_dense))
+    with torch.no_grad():
+        model(torch.zeros(batch, IMAGE, IMAGE, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return mix, flops[0]
+
+
+def _gn_case(gn, torch, gen, key, dtype):
+    b, hw, c, g, _ = key
+    x = (torch.randn(b, hw, c, device="cuda", generator=gen) * 2 + 0.5
+         ).to(dtype)
+    dy = torch.randn(b, hw, c, device="cuda", generator=gen).to(dtype)
+    gamma = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1
+    beta = torch.randn(c, device="cuda", generator=gen) * 0.1
+    return x, dy, gamma, beta
+
+
+def _ratio(a, b):
+    a, b = a.float(), b.float()
+    rms = b.square().mean().sqrt()
+    return ((a - b).abs() / (b.abs() + rms)).max().item()
+
+
+def _check_group_norm(gn, torch, shapes):
+    """(a) Both kernels against their plain versions at every [B, HW, C,
+    G] of the path, bf16 and f32, ReLU on and off."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for b, hw, c, g in shapes:
+        for dname in ("bfloat16", "float32"):
+            for relu in (False, True):
+                x, dy, gamma, beta = _gn_case(
+                    gn, torch, gen, (b, hw, c, g, relu),
+                    getattr(torch, dname))
+                kw = dict(groups=g, relu=relu)
+                y, mean, inv = gn.group_norm_fwd(x, gamma, beta, **kw)
+                ry, rmean, rinv = gn.group_norm_fwd_reference(x, gamma,
+                                                              beta, **kw)
+                # both backwards from the same statistics: the same
+                # x-hat, so the same ReLU mask
+                dx, dg, db = gn.group_norm_bwd(x, dy, gamma, beta, rmean,
+                                               rinv, **kw)
+                rdx, rdg, rdb = gn.group_norm_bwd_reference(
+                    x, dy, gamma, beta, rmean, rinv, **kw)
+                torch.cuda.synchronize()
+                row = {"shape": [b, hw, c, g], "dtype": dname, "relu": relu,
+                       "y_err": (y.float() - ry.float()).abs().max().item(),
+                       "dx_err": (dx.float() - rdx.float()).abs().max()
+                       .item(),
+                       "y_ratio": _ratio(y, ry), "dx_ratio": _ratio(dx, rdx),
+                       "mean_err": (mean - rmean).abs().max().item(),
+                       "inv_rel_err": ((inv - rinv).abs() / rinv).max()
+                       .item(),
+                       "dgamma_ratio": _ratio(dg, rdg),
+                       "dbeta_ratio": _ratio(db, rdb)}
+                ok = (row["y_ratio"] <= TOL_GN[dname]
+                      and row["dx_ratio"] <= TOL_GN[dname]
+                      and row["mean_err"] <= TOL_GN_MEAN
+                      and row["inv_rel_err"] <= TOL_GN_INV
+                      and row["dgamma_ratio"] <= TOL_GN_PARAM
+                      and row["dbeta_ratio"] <= TOL_GN_PARAM
+                      and bool(torch.isfinite(y).all())
+                      and bool(torch.isfinite(dx).all()))
+                row["ok"] = ok
+                print(f"group_norm {row}")
+                if not ok:
+                    raise SystemExit(f"the GroupNorm kernels disagree with "
+                                     f"their plain versions: {row}")
+                rows.append(row)
+    return rows
+
+
+def _gn_bound(b, hw, c, g, dtype, backward):
+    """Least time (ms) of one launch, each input read once and each
+    output written once.  Forward: x and the f32 gamma, beta [C] read; y
+    and the f32 mean, inv-std [B, G] written.  Backward: x, dy, gamma,
+    beta, mean and inv-std read; dx and the f32 per-image dgamma, dbeta
+    [B, C] written.  A few operations per element, so bytes bound."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = ((3 if backward else 2) * b * hw * c * item
+              + 4 * (2 * c + 2 * b * g + (2 * b * c if backward else 0)))
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def _time_group_norm(gn, torch, F, mix):
+    """(b) Per launch at each (shape, ReLU) of the path, bf16: both
+    kernels, their plain versions and ``F.group_norm`` (+ ReLU) forward
+    (graph replay) and backward (profiler device time)."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for key in sorted(mix):
+        b, hw, c, g, relu = key
+        x, dy, gamma, beta = _gn_case(gn, torch, gen, key, torch.bfloat16)
+        kw = dict(groups=g, relu=relu)
+        _, mean, inv = gn.group_norm_fwd(x, gamma, beta, **kw)
+        x4 = x.view(b, hw, 1, c).permute(0, 3, 1, 2)   # channels-last
+        gb, bb = gamma.bfloat16(), beta.bfloat16()
+
+        def library():
+            y = F.group_norm(x4, g, gb, bb, eps=1e-6)
+            return F.relu(y) if relu else y
+
+        xl, gl, bl = (t.detach().clone().requires_grad_()
+                      for t in (x4, gb, bb))
+        yl = F.group_norm(xl, g, gl, bl, eps=1e-6)
+        yl = F.relu(yl) if relu else yl
+        dyl = dy.view(b, hw, 1, c).permute(0, 3, 1, 2)
+        row = {
+            "fwd_ms": _time_ms(lambda: gn.group_norm_fwd(x, gamma, beta,
+                                                         **kw), 20),
+            "fwd_plain_ms": _time_ms(lambda: gn.group_norm_fwd_reference(
+                x, gamma, beta, **kw), 5),
+            "fwd_library_ms": _time_ms(library, 20),
+            "bwd_ms": _time_ms(lambda: gn.group_norm_bwd(
+                x, dy, gamma, beta, mean, inv, **kw), 20),
+            "bwd_plain_ms": _time_ms(lambda: gn.group_norm_bwd_reference(
+                x, dy, gamma, beta, mean, inv, **kw), 5),
+            "bwd_library_ms": _profiled_ms(lambda: torch.autograd.grad(
+                yl, (xl, gl, bl), dyl, retain_graph=True), 10),
+            "fwd_bound_ms": _gn_bound(b, hw, c, g, "bfloat16", False),
+            "bwd_bound_ms": _gn_bound(b, hw, c, g, "bfloat16", True)}
+        out[key] = row
+        print(f"timing group_norm [{b},{hw},{c}] G={g} relu={relu} bf16 "
+              f"(x{mix[key]} per step): fwd {row['fwd_ms']:.4f} ms (plain "
+              f"{row['fwd_plain_ms']:.4f}, F.group_norm "
+              f"{row['fwd_library_ms']:.4f}, bound "
+              f"{row['fwd_bound_ms']:.5f}); bwd {row['bwd_ms']:.4f} ms "
+              f"(plain {row['bwd_plain_ms']:.4f}, F.group_norm "
+              f"{row['bwd_library_ms']:.4f}, bound "
+              f"{row['bwd_bound_ms']:.5f})")
+    return out
+
+
+def _group_names(sd):
+    """A ``norm="group_pallas"`` state_dict under ``norm="group"``'s
+    names (flax nests ``GroupNorm_0`` there)."""
+    import re
+
+    return {re.sub(r"(AdaptiveGroupNorm_\d+)\.(scale|bias)$",
+                   r"\1.GroupNorm_0.\2", k): v for k, v in sd.items()}
+
+
+def _gn_grads_agree(start, batch, torch, np):
+    """(c) Step 1's gradient of every parameter through norm=
+    "group_pallas" against norm="group" from the same start on the same
+    batch, in f32 and in bf16.  The norms' parameters are drawn at random
+    around their init first (scales 1 + 0.1 N, the zero-initialized ones
+    0.1 N, biases 0.05 N), so every block branch is live and every
+    parameter has a gradient."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch import build_model
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.ops.losses import resolve_loss
+
+    rng = np.random.default_rng(7)
+    drawn = {}
+    for k, v in start.items():
+        v = v.detach().float().cpu()
+        if k.endswith(("scale", "bias")) and "Dense" not in k:
+            noise = torch.from_numpy(
+                rng.standard_normal(v.shape).astype(np.float32))
+            if k.endswith("bias"):
+                v = 0.05 * noise
+            else:
+                v = (v != 0) + 0.1 * noise
+        drawn[k] = v
+
+    def grads(norm, dtype):
+        sd = drawn if norm == "group_pallas" else _group_names(drawn)
+        model = build_model(model_config(
+            "resnet", (IMAGE, IMAGE, 3),
+            **{**RESNET, "norm": norm, "dtype": dtype}), device="cuda")
+        params = {n: sd[n].to("cuda").requires_grad_()
+                  for n, _ in model.named_parameters()}
+        logits = functional_call(model, params, (batch["features"],))
+        loss = resolve_loss(PS["loss"])(logits, batch["label"])
+        out = torch.autograd.grad(loss, list(params.values()))
+        # pallas names, in the same module order for both norms
+        return dict(zip(drawn, out)), float(loss.detach())
+
+    def compare(got, want):
+        total = torch.stack([g.norm() for g in want.values()]).norm().item()
+        norm = torch.stack([g.norm() for g in got.values()]).norm().item()
+        worst = {}
+        for name, g in got.items():
+            scale = max(want[name].norm().item(), 1e-3 * total)
+            err = (g - want[name]).norm().item() / scale
+            worst[name] = err
+        return abs(norm / total - 1), worst
+
+    def kinds(worst):
+        out: dict = {}
+        for name, err in worst.items():
+            kind = name.rsplit(".", 1)[-1] + ("" if "Conv" in name
+                                              or "Dense" in name
+                                              else "(norm)")
+            out[kind] = max(out.get(kind, 0.0), err)
+        return " ".join(f"{k}={v:.3g}" for k, v in out.items())
+
+    res = {}
+    ref = None
+    for dtype in ("float32", "bfloat16"):
+        got, loss_k = grads("group_pallas", dtype)
+        want, loss_f = grads("group", dtype)
+        gdiff, worst = compare(got, want)
+        res[dtype] = {"loss": [loss_k, loss_f], "grad_norm_rel_diff": gdiff,
+                      "worst_rel_err": max(worst.values())}
+        if dtype == "float32":
+            ref = got
+            bad = {n: e for n, e in worst.items() if not e <= TOL_GN_GRAD}
+            if bad:
+                raise SystemExit(f"step 1 gradients in f32, group_pallas "
+                                 f"against group: relative errors {bad}")
+        else:
+            res[dtype]["pallas_vs_f32"] = max(compare(got, ref)[1].values())
+            res[dtype]["group_vs_f32"] = max(compare(want, ref)[1].values())
+        print(f"ps: step 1 {dtype}: loss group_pallas {loss_k:.6f} vs "
+              f"group {loss_f:.6f}; global grad norm relative diff "
+              f"{gdiff:.4g} (tolerance {TOL_GN_GNORM}); largest relative "
+              f"error by kind: {kinds(worst)}"
+              + ("" if dtype == "float32" else
+                 f"; against f32 group_pallas: largest "
+                 f"{res[dtype]['pallas_vs_f32']:.3g}, group: "
+                 f"{res[dtype]['group_vs_f32']:.3g}"))
+        if not gdiff <= TOL_GN_GNORM:
+            raise SystemExit(f"group_pallas and group step-1 gradient "
+                             f"norms disagree in {dtype}")
+    return res
+
+
+# device time by class on the PS path: the GroupNorm kernels; the
+# convolutions (cuDNN's kernels and layout transforms, and the GEMMs it
+# runs the 1x1 convolutions as; the head's small product lands here
+# too); the optimizer and the commits by their profiler ranges; the rest
+# (elementwise: weight casts, residual adds, pads, pooling, the loss)
+PS_CLASSES = (("group_norm_fwd", ("::fwd_stats_kernel<",
+                                  "::fwd_apply_kernel<")),
+              ("group_norm_bwd", ("::bwd_stats_kernel<",
+                                  "::bwd_apply_kernel<")),
+              ("conv_gemm", ("conv", "cudnn", "xmma", "fprop", "dgrad",
+                             "wgrad", "implicit", "Nhwc", "nhwc", "nchw",
+                             "Nchw", "nvjet", "gemm", "cutlass")))
+
+
+def _ps_profile(cfg, data, seed, start, wall, torch):
+    """One round of the trainer under ``torch.profiler`` (host and
+    device): ``ADAG`` trains one more epoch (4 rounds) from ``start``,
+    with a profiler step at each round's commit order (the trainer draws
+    one per round, just before it stacks that round's batches), and the
+    third round is recorded.  Metrics come to the host one round late,
+    so that window holds the tail of the round before and most of its
+    own.  Device time by kernel class and by the port's ranges; busy
+    share against ``wall``, the unprofiled round's time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from distkeras_tpu_torch import ADAG
+
+    trainer = ADAG(cfg, num_epoch=1, seed=seed, learning_rate=PS_LR,
+                   lr_law="scale", device="cuda", **PS)
+    orders, seen = trainer.commit_orders(), []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1, repeat=1),
+                 on_trace_ready=seen.append) as prof:
+        def stepping():
+            for i, perm in enumerate(orders):
+                if i:
+                    prof.step()
+                yield perm
+
+        trainer.commit_orders = stepping
+        trainer.train(data, initial_variables=start)
+        torch.cuda.synchronize()
+    if len(seen) != 1:
+        raise SystemExit(f"the profiler recorded {len(seen)} rounds")
+    kernels = _device_kernels(prof, torch)
+    launched = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.key in kernels)
+    classes = {name: 0.0 for name, _ in PS_CLASSES}
+    classes["other"] = 0.0
+    for kname, ms in kernels.items():
+        cls = next((name for name, marks in PS_CLASSES
+                    if any(m in kname for m in marks)), "other")
+        classes[cls] += ms
+    ranges = {r: 0.0 for r in RANGES}
+    host = {r: 0.0 for r in RANGES}
+    for ev in prof.events():
+        if ev.name in RANGES and ev.device_type \
+                == torch.autograd.DeviceType.CPU:
+            ranges[ev.name] += ev.device_time_total / 1e3
+            host[ev.name] += ev.cpu_time_total / 1e3
+    # the optimizer's and the commits' kernels are elementwise ones:
+    # take them out of "other"
+    classes["optimizer"] = ranges["optimizer_update"]
+    classes["commits"] = ranges["ps_commits"]
+    classes["elementwise"] = classes.pop("other") - sum(ranges.values())
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    print(f"ps profile: one round of the trainer, unprofiled round "
+          f"{wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms in {launched} kernels, idle share "
+          f"{1 - busy / 1e3 / wall:.4f}; by class "
+          f"(ms): " + " ".join(f"{k}={v:.3f}" for k, v in classes.items()))
+    print(f"ps profile: host time in the ranges (profiled, so inflated "
+          f"by the profiler's own cost), ms: commits "
+          f"{host['ps_commits']:.3f} optimizer "
+          f"{host['optimizer_update']:.3f}")
+    for name, ms in top:
+        print(f"ps profile:   {ms:9.3f} ms  {name[:90]}")
+    return {"round_wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / 1e3 / wall, "kernels": launched,
+            "by_class_ms": classes,
+            "host_ms_profiled": host, "top_kernels_ms": dict(top)}
+
+
+def _ps_train(seed, torch, np):
+    """Phase 5 (d)-(f): ADAG trains ResNet-50-GroupNorm through the
+    faithful commit rounds; then AEASGD at smaller depth; then round and
+    step times, MFU and device time by class.  Returns the numbers and
+    the GroupNorm launch counts of the ADAG run."""
+    from distkeras_tpu_torch import ADAG, AEASGD
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.ops import group_norm as gn
+    from distkeras_tpu_torch.workers import TrainState, make_train_step
+
+    t_phase = time.monotonic()
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **RESNET)
+    trainer = ADAG(cfg, num_epoch=PS_EPOCHS, seed=seed, learning_rate=PS_LR,
+                   lr_law="scale", device="cuda", **PS)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    w, k, b = PS["num_workers"], PS["communication_window"], \
+        PS["batch_size"]
+    mix, fwd_flops = _resnet_shapes(trainer.model, b, torch)
+    per_step = sum(mix.values())
+    print(f"ps: ResNet-50 params={n_params} GroupNorms per step={per_step} "
+          f"shapes={len(mix)} forward GFLOP per image={fwd_flops / 1e9:.4f}"
+          f" lr={trainer.learning_rate} (lr_law='scale' from {PS_LR})")
+    t0 = time.monotonic()
+    data = datasets.imagenet_synth(PS_ROWS, image_size=IMAGE,
+                                   num_classes=RESNET["num_classes"],
+                                   seed=seed)
+    print(f"ps: imagenet_synth({PS_ROWS}) made in "
+          f"{time.monotonic() - t0:.1f} s")
+    start = {n: v.clone() for n, v in trainer.model.state_dict().items()}
+
+    torch.cuda.synchronize()
+    _reset_gn(gn)
+    trainer.train(data)
+    torch.cuda.synchronize()
+    launches = _gn_counts(gn)
+    copies = gn.gradient_copies
+    hist = trainer.history
+    losses, epochs = hist["round_loss"], hist["epoch_loss"]
+    rounds = len(losses)
+    print(f"ps: ADAG rounds={rounds} epoch_loss={epochs} round_loss="
+          f"{np.round(losses, 4).tolist()} staleness={hist['staleness']} "
+          f"clock={trainer.parameter_server_state.clock} launches={launches}"
+          f" gradient_copies={copies} training_time_s="
+          f"{trainer.training_time:.3f}")
+    want = per_step * w * k * rounds
+    if rounds < 4 * PS_EPOCHS or any(n != want
+                                     for n in launches.values()):
+        raise SystemExit(f"GroupNorm launches on the PS path {launches} "
+                         f"over {rounds} rounds; expected {want} each "
+                         f"({per_step} x {w} workers x window {k} per "
+                         f"round)")
+    if not np.isfinite(losses).all() or not epochs[1] < epochs[0]:
+        raise SystemExit(f"ADAG losses not finite or not falling: {epochs}")
+    if any(sorted(s) != list(range(w)) for s in hist["staleness"]) \
+            or trainer.parameter_server_state.clock != w * rounds:
+        raise SystemExit("commit staleness or PS clock off")
+
+    batch0 = {c: torch.from_numpy(data[c][:b]).to("cuda")
+              for c in ("features", "label")}
+    grads = _gn_grads_agree(start, batch0, torch, np)
+
+    # (e) the elastic rule on the card, at smaller depth
+    small = model_config("resnet", (IMAGE, IMAGE, 3),
+                         **{**RESNET, "stage_sizes": AEASGD_STAGES})
+    elastic = AEASGD(small, num_epoch=1, seed=seed, device="cuda", **PS)
+    elastic.train(data.take(AEASGD_ROWS))
+    e_loss = elastic.history["round_loss"]
+    print(f"ps: AEASGD stages={AEASGD_STAGES} alpha={elastic.alpha} rounds="
+          f"{len(e_loss)} round_loss={np.round(e_loss, 4).tolist()} clock="
+          f"{elastic.parameter_server_state.clock}")
+    if not (len(e_loss) and np.isfinite(e_loss).all()
+            and elastic.parameter_server_state.clock == w * len(e_loss)):
+        raise SystemExit("AEASGD losses not finite or its clock off")
+    del elastic
+
+    # (f) the trainer's own round time: its second epoch's wall (the
+    # shuffle, per-worker stacking, the copies to the card, the rounds
+    # and the metrics' drain) over that epoch's rounds
+    per_epoch = rounds // PS_EPOCHS
+    round_s = trainer.epoch_time_s[1] / per_epoch
+    stall_s = hist["segment_stall_s"][1]
+    # one step of a worker alone, on the trained center
+    tx = trainer._tx()
+    worker = TrainState.create(trainer.model, trainer.trained_variables, tx,
+                               device="cuda")
+    step = make_train_step(trainer.model, trainer.loss, tx)
+    step_times = []
+    for _ in range(6):
+        t0 = time.monotonic()
+        step(worker, batch0)
+        torch.cuda.synchronize()
+        step_times.append(time.monotonic() - t0)
+    step_s = float(np.median(step_times[1:]))
+    del worker
+    images = w * k * b
+    train_flops = 3.0 * fwd_flops        # forward + backward (2x)
+    res = {"params": n_params, "group_norms_per_step": per_step,
+           "group_norm_launches_per_round": per_step * w * k,
+           "fwd_gflop_per_image": fwd_flops / 1e9, "rounds": rounds,
+           "epoch_loss": epochs, "round_loss": losses,
+           "staleness": hist["staleness"], "lr": trainer.learning_rate,
+           "ps_clock": trainer.parameter_server_state.clock,
+           "gradient_copies": copies,
+           "training_time_s": trainer.training_time,
+           "aeasgd_round_loss": e_loss, "step1_grads": grads,
+           "round_ms": round_s * 1e3, "epoch_time_s": trainer.epoch_time_s,
+           "epoch2_shuffle_s": stall_s,
+           "step_ms": step_s * 1e3, "images_per_s": images / round_s,
+           "mfu": train_flops * images / round_s / PEAK_FLOPS["bfloat16"],
+           "step_mfu": train_flops * b / step_s / PEAK_FLOPS["bfloat16"]}
+    print(f"ps: round_ms={res['round_ms']:.3f} (the trainer's epoch 2: "
+          f"{trainer.epoch_time_s[1]:.4f} s over {per_epoch} rounds, "
+          f"{stall_s:.4f} s of it the shuffle; epoch 1 "
+          f"{trainer.epoch_time_s[0]:.4f} s) step_ms="
+          f"{res['step_ms']:.3f} images_per_s={res['images_per_s']:.1f} "
+          f"(one card) mfu={res['mfu']:.4f} step_mfu={res['step_mfu']:.4f} "
+          f"(analytic conv FLOPs x3 against 989 TFLOP/s)")
+    res["profile"] = _ps_profile(cfg, data, seed, trainer.trained_variables,
+                                 round_s, torch)
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"ps: phase took {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -631,6 +1175,7 @@ def main() -> int:
     from distkeras_tpu_torch import convert
     from distkeras_tpu_torch.models import model_config
     from distkeras_tpu_torch.ops import _build, attention
+    from distkeras_tpu_torch.ops import group_norm as gn
 
     # full-f32 matmuls in the plain versions; no reduced-precision
     # split-K in bf16 products
@@ -640,7 +1185,8 @@ def main() -> int:
 
     # ---- 1. build ---------------------------------------------------
     t0 = time.monotonic()
-    libs = _build.build(["flash_attention_fwd", "flash_attention_bwd"])
+    libs = _build.build(["flash_attention_fwd", "flash_attention_bwd",
+                         "group_norm"])
     print(f"build: {time.monotonic() - t0:.1f} s")
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -755,7 +1301,21 @@ def main() -> int:
     # ---- 4. training path -------------------------------------------
     train, train_counts = _train(args.seed, torch, np)
 
-    # ---- 5. kernel table ---------------------------------------------
+    # ---- 5. PS training path ------------------------------------------
+    # the path's GroupNorm shapes and FLOPs, read off one forward
+    probe = build_model(model_config("resnet", (IMAGE, IMAGE, 3),
+                                     **RESNET), device="cuda")
+    gn_mix, _ = _resnet_shapes(probe, PS["batch_size"], torch)
+    del probe
+    gn_shapes = sorted({key[:4] for key in gn_mix})
+    print(f"group_norm: the PS path's shapes [B, HW, C, G, relu] x per "
+          f"step: {sorted(gn_mix.items())}")
+    gn_rows = _check_group_norm(gn, torch, gn_shapes)
+    gn_timing = _time_group_norm(gn, torch, F, gn_mix)
+    torch.cuda.empty_cache()
+    ps, ps_counts = _ps_train(args.seed, torch, np)
+
+    # ---- 6. kernel table ---------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts); the backward
     # kernels run on the training path only
@@ -791,6 +1351,27 @@ def main() -> int:
             "replaces": replaces, "launches": train_counts[name],
             "launches_by_path": by_path[name], "max_abs_err": err,
             **bwd_timing[name]})
+    # the GroupNorm kernels' numbers are launch-weighted over the PS
+    # path's (shape, ReLU) mix
+    gn_total = sum(gn_mix.values())
+
+    def gn_mean(field):
+        return sum(n * gn_timing[k][field]
+                   for k, n in gn_mix.items()) / gn_total
+
+    for name, pre, out, line in (("group_norm_fwd", "fwd", "y", 56),
+                                 ("group_norm_bwd", "bwd", "dx", 83)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distkeras_tpu_torch/csrc/group_norm.cu",
+            "replaces": f"distkeras_tpu/ops/pallas_kernels.py:{line}",
+            "launches": ps_counts[name],
+            "launches_by_path": {"ps_train": ps_counts[name]},
+            "max_abs_err": max(r[f"{out}_err"] for r in gn_rows
+                               if r["dtype"] == "bfloat16"),
+            "ms": gn_mean(f"{pre}_ms"), "plain_ms": gn_mean(f"{pre}_plain_ms"),
+            "bound_ms": gn_mean(f"{pre}_bound_ms"), "bound_by": "bytes",
+            "library_ms": gn_mean(f"{pre}_library_ms")})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -803,7 +1384,10 @@ def main() -> int:
                       "wall_s": wall, "tokens_per_s": n_tok / wall,
                       "ttft_p50_s": ttft[0], "ttft_p95_s": ttft[1]},
             "profile": prof, "train": train,
-            "kernels": kernels}, indent=1))
+            "group_norm_checks": gn_rows,
+            "group_norm_timing": [{"key": list(k), "per_step": gn_mix[k],
+                                   **v} for k, v in gn_timing.items()],
+            "ps_train": ps, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

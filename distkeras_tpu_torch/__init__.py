@@ -1,9 +1,11 @@
 """distkeras_tpu_torch: the PyTorch/CUDA port of distkeras_tpu.
 
-Two slices so far, on an NVIDIA H100: ``SingleTrainer`` trains
-``TransformerLM``, and ``DecodeEngine`` serves it.  Attention runs
-hand-written CUDA kernels, forward and backward (``ops/attention.py``,
-``csrc/flash_attention_*.cu``).  Entry points run on ``cuda`` unless
+Three slices so far, on an NVIDIA H100: ``SingleTrainer`` trains
+``TransformerLM``, ``DecodeEngine`` serves it, and the parameter-server
+family (``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``, ``EAMSGD``)
+trains the MLP, ConvNet and ResNet through the emulated commit rounds.
+Attention and GroupNorm run hand-written CUDA kernels, forward and
+backward (``ops/attention.py``, ``ops/group_norm.py``, ``csrc/``).  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``, and raise when no card is present.
 The package imports neither JAX nor ``distkeras_tpu``.
 """
@@ -12,4 +14,6 @@ from distkeras_tpu_torch.data import Dataset  # noqa: F401
 from distkeras_tpu_torch.models import (  # noqa: F401
     ModelSpec, TransformerLM, build_model, generate, model_config)
 from distkeras_tpu_torch.serving import DecodeEngine, ShedError  # noqa: F401
-from distkeras_tpu_torch.trainers import SingleTrainer, Trainer  # noqa: F401
+from distkeras_tpu_torch.trainers import (  # noqa: F401
+    ADAG, AEASGD, DOWNPOUR, EAMSGD, DistributedTrainer, DynSGD,
+    SingleTrainer, Trainer)

@@ -20,6 +20,14 @@ Values stay f32 here; ``TransformerLM.load_state_dict`` casts each to
 its parameter's dtype.  ``params_to_flax(state_dict, num_heads)`` is
 the reverse (f32 numpy leaves), so trained parameters can be compared
 with the JAX package's.
+
+The MLP, ConvNet and ResNet keep flax's module names, so their trees
+map leaf by leaf: a path ``A/B/kernel`` becomes ``A.B.weight`` (conv
+HWIO -> OIHW, Dense ``[in, out]`` -> ``[out, in]``); ``bias`` and a
+norm's ``scale`` keep their names and values.  Both GroupNorm
+spellings map as they nest: ``AdaptiveGroupNorm_i/GroupNorm_0/scale``
+(``norm="group"``) and ``AdaptiveGroupNorm_i/scale``
+(``norm="group_pallas"``).
 """
 
 from __future__ import annotations
@@ -45,11 +53,35 @@ def _layer_norm(node: Mapping, prefix: str) -> dict:
             f"{prefix}.bias": _t(node["bias"])}
 
 
+def _kernel_from_flax(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4:                                # conv HWIO -> OIHW
+        return k.transpose(3, 2, 0, 1)
+    if k.ndim == 2:                                # Dense [in, out]
+        return k.T
+    raise ValueError(f"no torch layout for a {k.ndim}-d flax kernel")
+
+
+def _flat_from_flax(tree: Mapping, prefix: str = "") -> dict:
+    sd = {}
+    for key, node in tree.items():
+        if isinstance(node, Mapping):
+            sd.update(_flat_from_flax(node, f"{prefix}{key}."))
+        elif key == "kernel":
+            sd[f"{prefix}weight"] = _t(np.ascontiguousarray(
+                _kernel_from_flax(np.asarray(node))))
+        else:
+            sd[f"{prefix}{key}"] = _t(node)
+    return sd
+
+
 def params_from_flax(tree: Mapping) -> dict:
-    """flax ``TransformerLM`` params (numpy leaves) -> the port's
-    ``state_dict``.  Raises on a tree it does not know (MoE, stacked
-    ``scan_blocks`` layers)."""
+    """flax params (numpy leaves) -> the port's ``state_dict``: a
+    ``TransformerLM`` tree (it has ``Embed_0``), else an MLP, ConvNet or
+    ResNet tree mapped leaf by leaf.  Raises on an LM tree it does not
+    know (MoE, stacked ``scan_blocks`` layers)."""
     tree = tree.get("params", tree)
+    if "Embed_0" not in tree:
+        return _flat_from_flax(tree)
     sd = {"embed.weight": _t(tree["Embed_0"]["embedding"]),
           "pos_embed.weight": _t(tree["pos_embed"]["embedding"])}
     n_blocks = sum(1 for k in tree if k.startswith("Block_"))
@@ -96,13 +128,34 @@ def _layer_norm_to_flax(sd: Mapping, prefix: str) -> dict:
             "bias": _np(sd[f"{prefix}.bias"])}
 
 
-def params_to_flax(state_dict: Mapping, num_heads: int) -> dict:
-    """The port's ``state_dict`` -> the JAX ``TransformerLM``'s
-    ``params`` tree (nested dicts of f32 numpy arrays), the reverse of
-    ``params_from_flax``.  ``num_heads`` splits the fused projections
-    into flax's ``[d, H, head_dim]`` kernels (the K/V head count follows
-    from the key projection's width)."""
+def _flat_to_flax(state_dict: Mapping) -> dict:
+    tree: dict = {}
+    for name, value in state_dict.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        x = _np(value)
+        if leaf == "weight":
+            leaf = "kernel"
+            x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
+        node[leaf] = np.ascontiguousarray(x)
+    return tree
+
+
+def params_to_flax(state_dict: Mapping, num_heads: int | None = None
+                   ) -> dict:
+    """The port's ``state_dict`` -> the JAX model's ``params`` tree
+    (nested dicts of f32 numpy arrays), the reverse of
+    ``params_from_flax``.  For a ``TransformerLM``, ``num_heads`` splits
+    the fused projections into flax's ``[d, H, head_dim]`` kernels (the
+    K/V head count follows from the key projection's width); the MLP,
+    ConvNet and ResNet need no more than their ``state_dict``."""
     sd = state_dict
+    if "embed.weight" not in sd:
+        return _flat_to_flax(sd)
+    if num_heads is None:
+        raise ValueError("a TransformerLM state_dict needs num_heads")
     n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
     d = sd["embed.weight"].shape[1]
     hd = d // num_heads

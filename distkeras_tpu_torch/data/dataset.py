@@ -4,8 +4,10 @@ The port's copy of the in-memory part of ``distkeras_tpu/data/
 dataset.py`` (numpy only, so the same code): columns are numpy arrays
 aligned on the row axis, and ``shuffle`` draws the same permutation from
 the same seed, so a trainer of either package sees its batches in the
-same order.  The CSV and npz readers, the sharded (out-of-core) sets and
-the partitioning verbs are not ported yet (queue 3b in ROADMAP.md).
+same order.  ``shard``/``repartition`` split the rows as the JAX
+package does, so a PS trainer of either package gives each worker the
+same rows.  The CSV and npz readers and the sharded (out-of-core) sets
+are not ported yet (queue 3b in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,6 +76,27 @@ class Dataset:
     def shuffle(self, seed: int = 0) -> "Dataset":
         perm = np.random.default_rng(seed).permutation(self._num_rows)
         return Dataset({k: v[perm] for k, v in self._columns.items()})
+
+    # -- partitioning (the Spark repartition analogue) --------------------
+
+    def shard(self, num_shards: int, index: int,
+              drop_remainder: bool = True) -> "Dataset":
+        """Rows of shard ``index`` out of ``num_shards`` (contiguous split,
+        equal sizes when ``drop_remainder``)."""
+        if not 0 <= index < num_shards:
+            raise ValueError(f"index {index} not in [0, {num_shards})")
+        per = self._num_rows // num_shards
+        if per == 0:
+            raise ValueError(
+                f"{self._num_rows} rows cannot fill {num_shards} shards")
+        start = index * per
+        stop = start + per if drop_remainder else (
+            self._num_rows if index == num_shards - 1 else start + per)
+        return Dataset({k: v[start:stop]
+                        for k, v in self._columns.items()})
+
+    def repartition(self, num_shards: int) -> list["Dataset"]:
+        return [self.shard(num_shards, i) for i in range(num_shards)]
 
     # -- batching ----------------------------------------------------------
 

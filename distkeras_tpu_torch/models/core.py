@@ -72,6 +72,9 @@ def build_model(config: Mapping[str, Any], device=None):
     raises without a card unless ``device="cpu"``)."""
     dev = resolve_device(device)
     # the family table fills as the model modules import
+    import distkeras_tpu_torch.models.convnet  # noqa: F401
+    import distkeras_tpu_torch.models.mlp  # noqa: F401
+    import distkeras_tpu_torch.models.resnet  # noqa: F401
     import distkeras_tpu_torch.models.transformer  # noqa: F401
 
     family = config["family"]
@@ -79,4 +82,10 @@ def build_model(config: Mapping[str, Any], device=None):
         raise KeyError(
             f"unknown model family {family!r}; known: "
             f"{sorted(MODEL_REGISTRY)}")
-    return MODEL_REGISTRY[family](**config.get("kwargs", {})).to(dev)
+    cls = MODEL_REGISTRY[family]
+    kwargs = dict(config.get("kwargs", {}))
+    # a torch layer is sized at construction: the families that read
+    # their input's shape (flax infers it at init) take it from the config
+    if getattr(cls, "takes_input_shape", False):
+        kwargs["input_shape"] = tuple(config["input_shape"])
+    return cls(**kwargs).to(dev)

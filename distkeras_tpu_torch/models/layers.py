@@ -1,0 +1,143 @@
+"""Layers shared by the port's MLP, ConvNet and ResNet, spelled as flax
+spells them: parameters stay f32 and each layer casts them (and its
+input) to its compute dtype at every use, as flax's ``param_dtype`` /
+``dtype`` pair does, so autograd through the cast hands back f32
+gradients.
+
+Images travel as ``[B, C, H, W]`` tensors in channels-last memory
+(``torch.channels_last``), cuDNN's tensor-core layout on Hopper: the
+models take the JAX package's NHWC input and ``permute`` it, a free
+view.  ``Conv`` keeps its weight ``[O, I, kh, kw]`` (torch's OIHW;
+``convert`` maps flax's HWIO) and pads as flax does: ``"SAME"`` pads
+``(total // 2, total - total // 2)``, so a stride-2 3x3 conv of an even
+size pads ``(0, 1)`` where torch's ``padding=1`` would pad ``(1, 1)``.
+
+``FlaxInit.init_params`` draws flax's default initializers once:
+kernels ``lecun_normal`` (truncated normal, std ``fan_in ** -0.5``),
+biases 0, norm scales 1 (0 where a block zero-inits its last norm) and
+norm biases 0.  Modules are built on the meta device, so torch's own
+initializers draw nothing.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# flax's truncated normal is cut at two standard deviations; this is the
+# std of the unit normal so cut, by which flax divides to keep the
+# requested std (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal(shape, generator=None) -> torch.Tensor:
+    """flax ``lecun_normal`` for a torch weight ``[out, in, *kernel]``:
+    truncated normal of std ``fan_in ** -0.5``, ``fan_in = in *
+    prod(kernel)``."""
+    std = math.prod(shape[1:]) ** -0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std,
+                                 2 * std, generator=generator)
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"dtype={name!r} not one of {list(DTYPES)}")
+    return DTYPES[name]
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """flax/XLA ``"SAME"``: ``(low, high)`` padding of one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on channels-last ``[B, C, H, W]``: ``padding`` is
+    ``"SAME"`` or flax's explicit ``[(lo, hi), (lo, hi)]``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Sequence[int], stride: int = 1,
+                 padding="SAME", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype, self.stride, self.padding = dtype, stride, padding
+        self.kernel = tuple(kernel)
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, *self.kernel))
+        self.bias = nn.Parameter(torch.empty(out_channels)) \
+            if use_bias else None
+
+    def _pads(self, x):
+        if self.padding == "SAME":
+            return [same_padding(x.shape[2 + i], self.kernel[i],
+                                 self.stride) for i in range(2)]
+        return [tuple(p) for p in self.padding]
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        w = self.weight.to(self.dtype, memory_format=torch.channels_last)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        (h0, h1), (w0, w1) = self._pads(x)
+        if h0 == h1 and w0 == w1:
+            return F.conv2d(x, w, b, self.stride, (h0, w0))
+        return F.conv2d(F.pad(x, (w0, w1, h0, h1)), w, b, self.stride)
+
+
+def max_pool_same(x, window: int, stride: int):
+    """flax ``nn.max_pool(..., padding="SAME")``: pads with -inf,
+    ``(0, 1)`` at a stride-2 window of an even size."""
+    (h0, h1), (w0, w1) = (same_padding(x.shape[2 + i], window, stride)
+                          for i in range(2))
+    x = F.pad(x, (w0, w1, h0, h1), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class FlaxInit(nn.Module):
+    """A model whose parameters come from one draw of flax's default
+    initializers (``init_params``).  A module holding a norm ``scale``
+    sets ``zero_scale = True`` where flax's ``scale_init`` is zeros."""
+
+    def _init_from_flax(self):
+        self.load_state_dict(self.init_params(), assign=True)
+
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> dict:
+        """f32 parameters on the CPU, drawn as the JAX package's flax
+        initializers draw them (keys and shapes are the
+        ``state_dict``'s).  The draws come from ``generator`` (default:
+        torch's global one), so they differ from the JAX package's:
+        carry weights across with ``convert``."""
+        out = {}
+        for mname, mod in self.named_modules():
+            pre = f"{mname}." if mname else ""
+            for leaf, p in mod.named_parameters(recurse=False):
+                if leaf == "weight":
+                    out[pre + leaf] = lecun_normal(tuple(p.shape), generator)
+                elif leaf == "scale" and not getattr(mod, "zero_scale",
+                                                     False):
+                    out[pre + leaf] = torch.ones(p.shape)
+                else:
+                    out[pre + leaf] = torch.zeros(p.shape)
+        return out

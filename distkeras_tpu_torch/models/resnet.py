@@ -1,0 +1,265 @@
+"""ResNet family of the ImageNet baseline config, the port of
+``distkeras_tpu/models/resnet.py``.
+
+The same configurations: basic and bottleneck blocks, stems ``conv``
+(7x7/s2) and ``space_to_depth`` (the exact 4x4/s1 re-layout of the 7x7/s2
+stem over a 2x2 phase fold), norms ``group`` (``F.group_norm``),
+``group_pallas`` (the hand-written GroupNorm kernels of
+``ops/group_norm.py``) and ``none``; bf16 compute with f32 parameters.
+The model takes the JAX config's NHWC input and runs its activations as
+channels-last ``[B, C, H, W]`` tensors (``layers.py``), the layout the
+GroupNorm kernels read as ``[B, HW, C]`` without a copy.
+
+Parameters keep flax's module names (``Conv_0``, ``AdaptiveGroupNorm_0``,
+``BottleneckBlock_3``, ``Dense_0``, with ``GroupNorm_0`` nested under
+``AdaptiveGroupNorm_i`` for ``norm="group"`` as flax nests it), so
+``convert`` maps a JAX tree leaf by leaf.  ``norm="batch"`` (running
+statistics, worker-local model state) and ``fusion`` (the fused-block
+kernels) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distkeras_tpu_torch.models.core import register_model
+from distkeras_tpu_torch.models.layers import (Conv, Dense, FlaxInit,
+                                               compute_dtype, max_pool_same)
+from distkeras_tpu_torch.ops.group_norm import group_norm
+
+def _unsupported(key: str, item: str):
+    return NotImplementedError(
+        f"{key} is not ported to distkeras_tpu_torch yet ({item} in "
+        "ROADMAP.md)")
+
+
+class _GroupNormParams(nn.Module):
+    """flax ``nn.GroupNorm``'s parameters (``scale``, ``bias``)."""
+
+    def __init__(self, channels: int, zero_scale: bool):
+        super().__init__()
+        self.zero_scale = zero_scale
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+
+class AdaptiveGroupNorm(nn.Module):
+    """GroupNorm with ``gcd(32, channels)`` groups, eps 1e-6, and an
+    optional fused ReLU.  ``impl="flax"`` is ``F.group_norm`` in f32
+    (parameters under ``GroupNorm_0``, as flax's ``nn.GroupNorm`` nests
+    them);
+    ``impl="pallas"`` is the GroupNorm kernels (parameters directly
+    here, as the JAX package's Pallas spelling holds them)."""
+
+    def __init__(self, channels: int, relu: bool = False,
+                 impl: str = "flax", zero_scale: bool = False):
+        super().__init__()
+        if impl not in ("flax", "pallas"):
+            raise ValueError(f"unknown AdaptiveGroupNorm impl {impl!r}")
+        self.groups = math.gcd(32, channels)
+        self.relu, self.impl, self.zero_scale = relu, impl, zero_scale
+        if impl == "flax":
+            self.GroupNorm_0 = _GroupNormParams(channels, zero_scale)
+        else:
+            self.scale = nn.Parameter(torch.empty(channels))
+            self.bias = nn.Parameter(torch.empty(channels))
+
+    def forward(self, x):
+        if self.impl == "pallas":
+            return group_norm(x, self.scale, self.bias, groups=self.groups,
+                              relu=self.relu)
+        # in f32 with f32 scale and bias, rounded once to x's dtype, as
+        # flax's nn.GroupNorm computes (F.group_norm on bf16 would take
+        # the scale in bf16 and round differently)
+        p = self.GroupNorm_0
+        y = F.group_norm(x.float(), self.groups, p.scale, p.bias, eps=1e-6)
+        return (F.relu(y) if self.relu else y).to(x.dtype)
+
+
+class _Identity(nn.Module):
+    """No-op norm (``norm="none"``)."""
+
+    def __init__(self, channels: int, relu: bool = False,
+                 zero_scale: bool = False):
+        super().__init__()
+        self.relu = relu
+
+    def forward(self, x):
+        return F.relu(x) if self.relu else x
+
+
+def _norm(norm: str):
+    """``(channels, relu=, zero_scale=) -> module`` for ``norm``."""
+    if norm == "batch":
+        raise _unsupported("norm='batch'",
+                           "queue 3i, BatchNorm's worker-local state")
+    if norm == "group":
+        return AdaptiveGroupNorm
+    if norm == "group_pallas":
+        return lambda c, **kw: AdaptiveGroupNorm(c, impl="pallas", **kw)
+    if norm == "none":
+        return _Identity
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def s2d_input(x: torch.Tensor) -> torch.Tensor:
+    """Space-to-depth, block 2: ``[N,H,W,C] -> [N,H/2,W/2,4C]`` with
+    channel layout ``(s, t, c)`` (row offset slowest)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+
+
+def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """Transform a ``[7,7,C,O]`` (flax HWIO) stride-2 stem kernel into
+    the equivalent ``[4,4,4C,O]`` stride-1 kernel over an ``s2d_input``
+    image: zero-pad to 8x8 at the front, then fold each 2x2 spatial
+    phase into the channel axis (same ``(s, t, c)`` layout)."""
+    w8 = F.pad(w7, (0, 0, 0, 0, 1, 0, 1, 0))
+    c_in, c_out = w7.shape[2], w7.shape[3]
+    w = w8.reshape(4, 2, 4, 2, c_in, c_out)
+    return w.permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 4 * c_in, c_out)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, in_channels: int, filters: int, stride: int, norm,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, filters, (3, 3), stride,
+                           use_bias=False, dtype=dtype)
+        self.AdaptiveGroupNorm_0 = norm(filters, relu=True)
+        self.Conv_1 = Conv(filters, filters, (3, 3), use_bias=False,
+                           dtype=dtype)
+        # zero-init the last norm's scale so blocks start as identity
+        self.AdaptiveGroupNorm_1 = norm(filters, zero_scale=True)
+        self.project = in_channels != filters or stride != 1
+        if self.project:
+            self.Conv_2 = Conv(in_channels, filters, (1, 1), stride,
+                               use_bias=False, dtype=dtype)
+            self.AdaptiveGroupNorm_2 = norm(filters)
+
+    def forward(self, x):
+        y = self.AdaptiveGroupNorm_0(self.Conv_0(x))
+        y = self.AdaptiveGroupNorm_1(self.Conv_1(y))
+        residual = (self.AdaptiveGroupNorm_2(self.Conv_2(x))
+                    if self.project else x)
+        return F.relu(residual + y)
+
+
+class BottleneckBlock(nn.Module):
+    def __init__(self, in_channels: int, filters: int, stride: int, norm,
+                 dtype: torch.dtype):
+        super().__init__()
+        out = 4 * filters
+        self.Conv_0 = Conv(in_channels, filters, (1, 1), use_bias=False,
+                           dtype=dtype)
+        self.AdaptiveGroupNorm_0 = norm(filters, relu=True)
+        self.Conv_1 = Conv(filters, filters, (3, 3), stride,
+                           use_bias=False, dtype=dtype)
+        self.AdaptiveGroupNorm_1 = norm(filters, relu=True)
+        self.Conv_2 = Conv(filters, out, (1, 1), use_bias=False,
+                           dtype=dtype)
+        # zero-init the last norm's scale so blocks start as identity
+        self.AdaptiveGroupNorm_2 = norm(out, zero_scale=True)
+        self.project = in_channels != out or stride != 1
+        if self.project:
+            self.Conv_3 = Conv(in_channels, out, (1, 1), stride,
+                               use_bias=False, dtype=dtype)
+            self.AdaptiveGroupNorm_3 = norm(out)
+
+    def forward(self, x):
+        y = self.AdaptiveGroupNorm_0(self.Conv_0(x))
+        y = self.AdaptiveGroupNorm_1(self.Conv_1(y))
+        y = self.AdaptiveGroupNorm_2(self.Conv_2(y))
+        residual = (self.AdaptiveGroupNorm_3(self.Conv_3(x))
+                    if self.project else x)
+        return F.relu(residual + y)
+
+
+@register_model("resnet")
+class ResNet(FlaxInit):
+    """Configurable ResNet on NHWC input; ``stage_sizes=(3,4,6,3),
+    bottleneck=True`` is ResNet-50."""
+
+    takes_input_shape = True
+
+    def __init__(self, input_shape: Sequence[int], num_classes: int = 1000,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 bottleneck: bool = True, width: int = 64,
+                 norm: str = "group", dtype: str = "bfloat16",
+                 stem: str = "conv", fusion: str = "none",
+                 fusion_stages: Sequence[int] | None = None):
+        super().__init__()
+        if fusion in ("pallas_block", "pallas_tail"):
+            if not bottleneck or norm != "group":
+                raise ValueError(
+                    f"fusion={fusion!r} implements the GroupNorm "
+                    f"bottleneck block only (norm='group', "
+                    f"bottleneck=True)")
+            raise _unsupported(f"fusion={fusion!r}",
+                               "the kernel table, kernels #7-#10")
+        if fusion != "none":
+            raise ValueError(f"unknown fusion {fusion!r}")
+        if stem not in ("conv", "space_to_depth"):
+            raise ValueError(f"unknown stem {stem!r}")
+        make_norm = _norm(norm)
+        cd = compute_dtype(dtype)
+        self.dtype, self.stem = cd, stem
+        h, w, c = input_shape
+        with torch.device("meta"):
+            if stem == "space_to_depth":
+                if h % 2 or w % 2:
+                    raise ValueError(
+                        f"stem='space_to_depth' needs even input height/"
+                        f"width (the 2x2 phase fold), got {(h, w)}; "
+                        f"use stem='conv' for odd sizes")
+                self.Conv_0 = Conv(4 * c, width, (4, 4),
+                                   padding=[(2, 1), (2, 1)],
+                                   use_bias=False, dtype=cd)
+            else:
+                self.Conv_0 = Conv(c, width, (7, 7), 2,
+                                   padding=[(3, 3), (3, 3)],
+                                   use_bias=False, dtype=cd)
+            self.AdaptiveGroupNorm_0 = make_norm(width, relu=True)
+            block = BottleneckBlock if bottleneck else BasicBlock
+            chans, i = width, 0
+            for stage, size in enumerate(stage_sizes):
+                for j in range(size):
+                    stride = 2 if stage > 0 and j == 0 else 1
+                    filters = width * 2 ** stage
+                    self.add_module(f"{block.__name__}_{i}",
+                                    block(chans, filters, stride, make_norm,
+                                          cd))
+                    chans = 4 * filters if bottleneck else filters
+                    i += 1
+            self.num_blocks, self.block_name = i, block.__name__
+            self.Dense_0 = Dense(chans, num_classes)
+        self._init_from_flax()
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        if self.stem == "space_to_depth":
+            x = s2d_input(x)
+        x = x.permute(0, 3, 1, 2)       # NHWC -> channels-last NCHW view
+        x = self.AdaptiveGroupNorm_0(self.Conv_0(x))
+        x = max_pool_same(x, 3, 2)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"{self.block_name}_{i}")(x)
+        return self.Dense_0(x.mean(dim=(2, 3)))
+
+
+def ResNet18(input_shape, **kw) -> ResNet:
+    kw.setdefault("stage_sizes", (2, 2, 2, 2))
+    kw.setdefault("bottleneck", False)
+    return ResNet(input_shape, **kw)
+
+
+def ResNet50(input_shape, **kw) -> ResNet:
+    kw.setdefault("stage_sizes", (3, 4, 6, 3))
+    kw.setdefault("bottleneck", True)
+    return ResNet(input_shape, **kw)

@@ -11,9 +11,17 @@ package's tree); ``initial_variables`` takes one, e.g. from
 ``convert.params_from_flax``.
 
 Training runs on ``device`` (default ``cuda``; raises without a card
-unless ``device="cpu"``).  The parallel trainers (Sync, the PS family,
-Ensemble/Averaging), checkpoints, per-epoch evaluation and profiling are
-not ported yet: see ROADMAP.md.
+unless ``device="cpu"``).
+
+The PS family (``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``,
+``EAMSGD``) trains on the emulated tiers (``fidelity="faithful"`` or
+``"fast"``, ``commit_overlap``, ``lr_law``), following the JAX loop's
+data path: each epoch shuffled with ``seed + 17 * epoch``,
+``repartition(num_workers)``, each worker's rows stacked into batches,
+``[W, window, B, ...]`` per round, one commit order per round from
+``commit_orders`` (seeded from ``seed + 2``).  ``SyncTrainer``,
+Ensemble/Averaging, the host and mesh tiers, checkpoints, per-epoch
+evaluation and profiling are not ported yet: see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -28,6 +36,15 @@ from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models.core import ModelSpec
+from distkeras_tpu_torch.parallel import ps_emulator
+from distkeras_tpu_torch.parallel.tiers import resolve_tier, tiers_with
+from distkeras_tpu_torch.parallel.update_rules import (
+    AdagRule,
+    DownpourRule,
+    DynSGDRule,
+    ElasticRule,
+    UpdateRule,
+)
 from distkeras_tpu_torch.workers import (
     TrainState,
     make_train_step,
@@ -203,3 +220,329 @@ class SingleTrainer(Trainer):
         self.trained_variables = state.variables()
         self.model.load_state_dict(self.trained_variables)
         return self.trained_variables
+
+
+# the JAX DistributedTrainer's keyword arguments of tiers and layers the
+# port does not have yet, with their defaults and ROADMAP.md items
+_HOST_WIRE = "queue 4a, the host-wire PS"
+_UNPORTED_KWARGS = {
+    "transport": ("inprocess", _HOST_WIRE),
+    "max_worker_failures": (0, _HOST_WIRE),
+    "worker_retries": (0, _HOST_WIRE),
+    "worker_timeout": (None, _HOST_WIRE),
+    "fault_injector": (None, _HOST_WIRE),
+    "compression": (None, _HOST_WIRE),
+    "ps_address": (None, _HOST_WIRE),
+    "ps_replicas": (None, _HOST_WIRE),
+    "ps_shards": (1, _HOST_WIRE),
+    "ps_elastic": (False, _HOST_WIRE),
+    "ps_groups": (None, _HOST_WIRE),
+    "ps_snapshot_path": (None, _HOST_WIRE),
+    "ps_snapshot_every": (0, _HOST_WIRE),
+    "comm_dtype": ("float32", "queue 4b, the mesh tier"),
+    "comm_codec": (None, "queue 4b, the mesh tier"),
+    "metrics_every": (1, "queue 4b, the mesh tier"),
+    "attrib_every": (0, "queue 4b, the mesh tier"),
+    "tp_rules": (None, "queue 5, tensor parallelism"),
+    "checkpoint_every_rounds": (None, "queue 3j, checkpoints"),
+}
+
+
+class DistributedTrainer(Trainer):
+    """Base of the async PS family (reference ``DistributedTrainer``):
+    ``num_workers`` workers of ``communication_window`` local steps per
+    emulated commit round.  ``fidelity``: ``"faithful"`` (commits applied
+    one by one) or ``"fast"`` (closed form); ``commit_overlap=True`` runs
+    the faithful tier's commits one round behind the windows
+    (``ps_emulator.make_pipelined_round_fn``).  ``lr_law``: ``"warn"``
+    (default) warns where the learning rate times the family's
+    amplification passes the measured stability scale, ``"scale"``
+    divides the rate by the family's measured divisor, ``"off"``.
+
+    ``train()`` returns the center's ``state_dict`` (f32), also kept as
+    ``trained_variables`` and in ``parameter_server_state``; history:
+    ``round_loss``, ``staleness`` (per round, each worker's commit
+    position), ``dropped_tail_batches``, ``epoch_loss``,
+    ``segment_stall_s``.  ``epoch_time_s``: each epoch's wall seconds,
+    from its shuffle to its last round's metrics on the host."""
+
+    #: effective per-round lr (configured lr x family amplification)
+    #: above which the staleness families measurably degrade on the JAX
+    #: package's calibration task (PARITY.md): a heuristic guardrail
+    _LR_LAW_EFFECTIVE_MAX = 0.1
+
+    def __init__(self, model, num_workers: int = 2,
+                 communication_window: int = 5,
+                 fidelity: str = "faithful", model_parallel: int = 1,
+                 lr_law: str = "warn", commit_overlap: bool = False,
+                 **kwargs):
+        for key, (default, item) in _UNPORTED_KWARGS.items():
+            if key in kwargs and kwargs.pop(key) != default:
+                raise _unsupported(key, item)
+        super().__init__(model, **kwargs)
+        self.num_workers = int(num_workers)
+        self.communication_window = int(communication_window)
+        self.tier = resolve_tier(fidelity)
+        self.fidelity = fidelity
+        if self.tier.data_plane != "emulated":
+            raise _unsupported(
+                f"fidelity={fidelity!r}",
+                "queue 4a, the host-wire PS" if fidelity == "host"
+                else "queue 4b, the mesh tier")
+        if int(model_parallel) != 1:
+            raise _unsupported("model_parallel > 1",
+                               "queue 5, tensor parallelism")
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise _unsupported("multi-host PS training",
+                               "queue 4b, the mesh tier")
+        self.commit_overlap = bool(commit_overlap)
+        if self.commit_overlap and not self.tier.commit_overlap:
+            raise ValueError(
+                "commit_overlap pipelines the commit against the next "
+                "window; it needs a tier with a separate commit phase "
+                "— the fast arm's closed form has none, got "
+                f"fidelity={fidelity!r}; overlap-capable tiers: "
+                f"{tiers_with('commit_overlap')}")
+        if lr_law not in ("warn", "scale", "off"):
+            raise ValueError(
+                f"lr_law={lr_law!r} must be 'warn' (default: warn "
+                "when the configured lr violates the measured "
+                "per-family stability law), 'scale' (divide lr by "
+                "the family's amplification factor), or 'off'")
+        self.lr_law = lr_law
+        self._apply_lr_law()
+        self.parameter_server_state = None
+        self.epoch_time_s: list[float] = []
+
+    def commit_orders(self):
+        """The rounds' commit orders, one per round across all epochs,
+        from a generator seeded with ``seed + 2`` (the JAX trainer draws
+        its own from ``jax.random.key(seed + 2)``).  Replace this method
+        on an instance to impose another sequence."""
+        return ps_emulator.commit_permutations(self.seed + 2,
+                                               self.num_workers)
+
+    def _lr_law(self):
+        """``(amplification, scale_divisor, law)`` for this family, or
+        ``None`` (the JAX trainer's table: DOWNPOUR x workers*window,
+        ADAG x workers, DynSGD x window, EAMSGD ~1/(1-m) with the
+        measured divisor 2; the elastic exchange itself is lr-neutral)."""
+        return None
+
+    def _apply_lr_law(self) -> None:
+        law = self._lr_law()
+        if law is None or self.lr_law == "off":
+            return
+        factor, divisor, suggestion = law
+        try:
+            lr = float(self.learning_rate)
+        except (TypeError, ValueError):
+            return  # schedules: the law is about constant-lr configs
+        if self.lr_law == "scale":
+            self.learning_rate = lr / divisor
+            return
+        effective = lr * factor
+        if effective > self._LR_LAW_EFFECTIVE_MAX:
+            import warnings
+
+            warnings.warn(
+                f"{type(self).__name__}: learning_rate={lr:g} is "
+                f"amplified ~{factor:g}x per PS round by this "
+                f"family's update law (effective {effective:g} > "
+                f"{self._LR_LAW_EFFECTIVE_MAX} — the measured "
+                "stability scale; PARITY.md 'per-family learning-"
+                f"rate scaling laws').  Consider {suggestion}, pass "
+                "lr_law='scale' to apply it automatically, or "
+                "lr_law='off' if this lr is deliberate.",
+                UserWarning, stacklevel=3)
+
+    def allocate_rule(self) -> UpdateRule:
+        raise NotImplementedError
+
+    def _train(self, dataset, initial_variables):
+        rule = self.allocate_rule()
+        tx = self._tx()
+        variables = self._init_variables(initial_variables)
+        num_workers, window = self.num_workers, self.communication_window
+        names = [n for n, _ in self.model.named_parameters()]
+        center = {n: torch.as_tensor(variables[n]).detach().to(
+                      device=self.device, dtype=torch.float32, copy=True)
+                  for n in names}
+        workers = [TrainState.create(self.model, variables, tx,
+                                     device=self.device)
+                   for _ in range(num_workers)]
+        step = make_train_step(self.model, self.loss, tx,
+                               self.features_col, self.label_col)
+        overlap = self.commit_overlap
+        if overlap:
+            round_fn = ps_emulator.make_pipelined_round_fn(rule, step)
+        else:
+            round_fn = ps_emulator.make_round_fn(rule, step, self.fidelity)
+        ps_state = rule.init_state(center)
+        orders = self.commit_orders()
+        cols = self._columns()
+        # the pipelined round's pending commit, until the first round
+        pend, pend_perm, pend_valid = None, list(range(num_workers)), False
+        self.epoch_time_s = []
+
+        for epoch in range(self.num_epoch):
+            epoch_losses: list[float] = []
+            pending = None  # the previous round's device metrics
+
+            def drain(metrics):
+                round_loss = float(np.mean(metrics["loss"].cpu().numpy()))
+                epoch_losses.append(round_loss)
+                self._record(round_loss=round_loss,
+                             staleness=metrics["staleness"].tolist())
+
+            # the stall is the time the epoch's segments take to load
+            # (for in-memory data, the shuffle)
+            t_get = time.monotonic()
+            segments = _epoch_segments(dataset, self.seed + 17 * epoch)
+            seg_stall = time.monotonic() - t_get
+            rounds = 0
+            for segment in segments:
+                if len(segment) < num_workers:
+                    self._record(skipped_segment_rows=len(segment))
+                    continue
+                per_worker = [_stack_batches(shard, self.batch_size, cols)
+                              for shard in segment.repartition(num_workers)]
+                if any(p is None for p in per_worker):
+                    self._record(skipped_segment_rows=len(segment))
+                    continue
+                n_batches = min(len(next(iter(p.values())))
+                                for p in per_worker)
+                seg_rounds = n_batches // window
+                # tail batches that do not fill a window are dropped, and
+                # counted
+                self._record(dropped_tail_batches=n_batches
+                             - seg_rounds * window)
+                for r in range(seg_rounds):
+                    perm = next(orders)
+                    batch = {k: torch.from_numpy(np.stack(
+                                 [p[k][r * window:(r + 1) * window]
+                                  for p in per_worker])).to(self.device)
+                             for k in cols}
+                    if overlap:
+                        (ps_state, workers, metrics, pend, pend_perm,
+                         pend_valid) = round_fn(ps_state, workers, batch,
+                                                perm, pend, pend_perm,
+                                                pend_valid)
+                    else:
+                        ps_state, workers, metrics = round_fn(
+                            ps_state, workers, batch, perm)
+                    # metrics come to the host one round late, so the
+                    # host assembles the next round while this one runs
+                    if pending is not None:
+                        drain(pending)
+                    pending = metrics
+                rounds += seg_rounds
+            if rounds == 0:
+                raise ValueError(
+                    f"not enough batches per worker for one "
+                    f"communication window ({window}) in any segment")
+            drain(pending)
+            if overlap and pend_valid:
+                # the pipeline runs one commit behind: fold the final
+                # pending round in so the returned center has every commit
+                ps_state = ps_emulator.flush_pending(
+                    rule, ps_state, pend, pend_perm, num_workers)
+                pend_valid = False
+            self.epoch_time_s.append(time.monotonic() - t_get)
+            self._record(epoch_loss=float(np.mean(epoch_losses)),
+                         segment_stall_s=round(seg_stall, 4))
+        self.parameter_server_state = ps_state
+        self.trained_variables = dict(ps_state.center)
+        self.model.load_state_dict(self.trained_variables)
+        return self.trained_variables
+
+
+class DOWNPOUR(DistributedTrainer):
+    """Dean et al. async SGD (reference ``DOWNPOUR``)."""
+
+    def allocate_rule(self):
+        return DownpourRule()
+
+    def _lr_law(self):
+        f = self.num_workers * self.communication_window
+        return (f, f, "learning_rate / (num_workers * "
+                "communication_window)")
+
+
+class ADAG(DistributedTrainer):
+    """Asynchronous Distributed Adaptive Gradients — window-normalized
+    deltas (the reference's flagship, ``ADAG``)."""
+
+    def allocate_rule(self):
+        return AdagRule()
+
+    def _lr_law(self):
+        return (self.num_workers, self.num_workers,
+                "learning_rate / num_workers")
+
+
+class DynSGD(DistributedTrainer):
+    """Staleness-scaled commits (reference ``DynSGD``)."""
+
+    def allocate_rule(self):
+        return DynSGDRule()
+
+    def _lr_law(self):
+        return (self.communication_window, self.communication_window,
+                "learning_rate / communication_window")
+
+
+class AEASGD(DistributedTrainer):
+    """Asynchronous Elastic Averaging SGD (Zhang et al.; reference
+    ``AEASGD``).  ``alpha = learning_rate * rho`` as in the paper's
+    stability condition."""
+
+    def __init__(self, model, rho: float = 5.0, **kwargs):
+        kwargs.setdefault("learning_rate", 0.01)
+        super().__init__(model, **kwargs)
+        self.rho = float(rho)
+
+    @property
+    def alpha(self) -> float:
+        try:
+            lr = float(self.learning_rate)
+        except (TypeError, ValueError):
+            raise ValueError(
+                "the elastic family derives alpha = learning_rate * "
+                "rho (the paper's stability condition), which needs a "
+                "scalar learning_rate — schedules are not supported "
+                f"here, got {self.learning_rate!r}") from None
+        return lr * self.rho
+
+    def allocate_rule(self):
+        return ElasticRule(alpha=self.alpha)
+
+
+class EAMSGD(AEASGD):
+    """AEASGD with Nesterov momentum in the worker loop (reference
+    ``EAMSGD`` — same server law, momentum on the worker)."""
+
+    def __init__(self, model, momentum: float = 0.9, **kwargs):
+        kwargs.setdefault("worker_optimizer", "nesterov")
+        # before super(): _apply_lr_law runs in the base __init__ and
+        # reads the momentum
+        self.momentum = momentum
+        super().__init__(model, **kwargs)
+
+    def _lr_law(self):
+        if self.worker_optimizer != "nesterov" or self.momentum >= 1:
+            return super()._lr_law()
+        # Nesterov workers amplify the step ~1/(1-m) transiently (the
+        # warning threshold); the measured correction is lr/2
+        return (1.0 / (1.0 - self.momentum), 2.0,
+                "learning_rate / 2 (the measured momentum-law row "
+                "at the default momentum=0.9)")
+
+    def _tx(self):
+        if self.worker_optimizer == "nesterov":
+            return resolve_optimizer("nesterov", self.learning_rate,
+                                     m=self.momentum)
+        return super()._tx()

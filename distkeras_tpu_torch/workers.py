@@ -316,6 +316,15 @@ class TrainState:
         return cls(step=0, params=params, opt_state=optimizer.init(params),
                    model_state=model_state)
 
+    def adopt(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Take the values of ``params`` (a pulled PS center) into this
+        state's parameters, in place, keeping the optimizer state: the
+        PS round's ``worker_states.replace(params=pulled)``.  The leaves
+        stay this state's own, so the center is never aliased."""
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(params[n])
+
     def variables(self) -> Params:
         """The ``state_dict``: f32 parameters and the buffers."""
         return {**{n: p.detach() for n, p in self.params.items()},
@@ -366,7 +375,10 @@ def make_train_step(model, loss, optimizer: Optimizer,
             task_loss, list(state.params.values()))))
         grad_norm = torch.stack([g.square().sum()
                                  for g in grads.values()]).sum().sqrt()
-        optimizer.update(grads, state.opt_state, state.params)
+        # a profiler range (free when no profiler runs): the optimizer's
+        # share of a step's device time
+        with torch.profiler.record_function("optimizer_update"):
+            optimizer.update(grads, state.opt_state, state.params)
         state.step += 1
         metrics = {"loss": task_loss.detach(),
                    "aux_loss": torch.zeros((), device=task_loss.device),

@@ -1,6 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA flash kernels
-(forward and backward) against their plain versions, the serving path
-launching the forward kernel, and a training step through all three.
+(forward and backward) and GroupNorm kernels (forward and backward)
+against their plain versions, the serving path launching the forward
+kernel, a training step through the three flash kernels, a ResNet's
+gradients through the GroupNorm kernels against ``F.group_norm``, and
+ADAG's rounds launching them.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -163,3 +166,142 @@ def test_train_step_gives_every_parameter_its_gradient(card, dtype, tol):
             continue
         scale = max(want[name].norm().item(), 1e-3 * total.item())
         assert (g - want[name]).norm().item() <= tol * scale, name
+
+
+# GroupNorm kernels against their plain versions, per element scaled by
+# |plain| + rms(plain): f32 differs by summation order (mean and inv-std
+# to ~1e-6) carried through; bf16 may round one element either side of
+# a rounding boundary: one bf16 ulp of |y|
+GN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+# [B, HW, C, G]: the ResNet-50 stem's narrow groups, a wide late stage,
+# an odd row count and channels off the 16-byte vector (scalar path)
+GN_SHAPES = [(4, 12544, 64, 32), (3, 49, 2048, 32), (2, 37, 96, 8),
+             (2, 25, 12, 4)]
+
+
+def _ratio(a, b):
+    a, b = a.float(), b.float()
+    rms = b.square().mean().sqrt()
+    return ((a - b).abs() / (b.abs() + rms)).max().item()
+
+
+def _gn_inputs(shape, dtype, seed):
+    from distkeras_tpu_torch.ops import group_norm as gn
+
+    b, hw, c, g = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(b, hw, c, device="cuda", generator=gen) * 2 + 0.5
+         ).to(dtype)
+    dy = torch.randn(b, hw, c, device="cuda", generator=gen).to(dtype)
+    gamma = torch.randn(c, device="cuda", generator=gen) * 0.5 + 1
+    beta = torch.randn(c, device="cuda", generator=gen) * 0.1
+    return gn, x, dy, gamma, beta, g
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_kernels_match_plain(card, shape, dtype, relu):
+    gn, x, dy, gamma, beta, g = _gn_inputs(shape, dtype, sum(shape))
+    before = (gn.fwd_launches, gn.bwd_launches)
+    y, mean, inv = gn.group_norm_fwd(x, gamma, beta, groups=g, relu=relu)
+    ry, rmean, rinv = gn.group_norm_fwd_reference(x, gamma, beta, groups=g,
+                                                  relu=relu)
+    # the backward of both from the same statistics, so both recompute
+    # the same x-hat and take the same ReLU mask
+    dx, dg, db = gn.group_norm_bwd(x, dy, gamma, beta, rmean, rinv,
+                                   groups=g, relu=relu)
+    rdx, rdg, rdb = gn.group_norm_bwd_reference(x, dy, gamma, beta, rmean,
+                                                rinv, groups=g, relu=relu)
+    torch.cuda.synchronize()
+    assert (gn.fwd_launches, gn.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+    assert _ratio(y, ry) <= GN_TOL[dtype]
+    assert _ratio(dx, rdx) <= GN_TOL[dtype]
+    # f32 statistics and parameter gradients: summation order only
+    assert (mean - rmean).abs().max().item() <= 1e-5
+    assert ((inv - rinv).abs() / rinv).max().item() <= 1e-5
+    assert _ratio(dg, rdg) <= 1e-4 and _ratio(db, rdb) <= 1e-4
+
+
+def test_group_norm_kernel_takes_channels_last_only(card):
+    from distkeras_tpu_torch.ops import group_norm as gn
+
+    x = torch.randn(2, 64, 8, 8, device="cuda")
+    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    with pytest.raises(ValueError, match="channels-last"):
+        gn.group_norm(x, w, b, groups=32)
+    y = gn.group_norm(x.contiguous(memory_format=torch.channels_last), w, b,
+                      groups=32)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+def _resnet_cfg(norm, **kw):
+    return model_config("resnet", (32, 32, 3), num_classes=5,
+                        stage_sizes=(1, 1), width=16, norm=norm,
+                        stem="space_to_depth", **kw)
+
+
+def test_resnet_gradients_group_pallas_match_group(card):
+    """One step's gradient of every parameter of a small ResNet through
+    the GroupNorm kernels against ``F.group_norm``, in f32 from the same
+    weights (norm parameters drawn around their init, so every branch is
+    live): within 1e-3 of each parameter's norm (floor 1e-3 of the whole
+    gradient's), summation order only; one launch of each kernel per
+    GroupNorm."""
+    import re
+
+    from distkeras_tpu_torch.ops import group_norm as gn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    pallas = build_model(_resnet_cfg("group_pallas", dtype="float32"))
+    group = build_model(_resnet_cfg("group", dtype="float32"))
+    gen = torch.Generator().manual_seed(1)
+    sd = {k: (torch.randn(v.shape, generator=gen).to(v.device) * 0.1
+              + (k.endswith("scale") and v.abs().sum() > 0))
+          if k.endswith(("scale", "bias")) and "Dense" not in k else v
+          for k, v in pallas.state_dict().items()}
+    pallas.load_state_dict(sd)
+    group.load_state_dict({re.sub(r"(AdaptiveGroupNorm_\d+)\.",
+                                  r"\1.GroupNorm_0.", k): v
+                           for k, v in sd.items()})
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 5, 4)).cuda()
+    n_norms = sum(1 for m in pallas.modules()
+                  if type(m).__name__ == "AdaptiveGroupNorm")
+    before = (gn.fwd_launches, gn.bwd_launches)
+    got = _grads(pallas, x, y)
+    torch.cuda.synchronize()
+    assert (gn.fwd_launches, gn.bwd_launches) == (before[0] + n_norms,
+                                                  before[1] + n_norms)
+    want = list(_grads(group, x, y).values())
+    total = torch.stack([g.norm() for g in want]).norm().item()
+    for (name, g), w in zip(got.items(), want):
+        scale = max(w.norm().item(), 1e-3 * total)
+        assert (g - w).norm().item() <= 1e-3 * scale, name
+
+
+def test_adag_round_launches_both_kernels_per_group_norm(card):
+    """ADAG on the card through the faithful round: each kernel launches
+    once per GroupNorm per step, on every worker, every round."""
+    from distkeras_tpu_torch import ADAG
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.ops import group_norm as gn
+
+    t = ADAG(_resnet_cfg("group_pallas"), num_workers=2,
+             communication_window=2, batch_size=4, num_epoch=1,
+             learning_rate=0.01, worker_optimizer="momentum",
+             loss="sparse_categorical_crossentropy")
+    n_norms = sum(1 for m in t.model.modules()
+                  if type(m).__name__ == "AdaptiveGroupNorm")
+    gn.fwd_launches = gn.bwd_launches = 0
+    t.train(datasets.synthetic_classification(32, (32, 32, 3), 5))
+    torch.cuda.synchronize()
+    rounds = len(t.history["round_loss"])
+    assert rounds == 2 and np.isfinite(t.history["round_loss"]).all()
+    assert gn.fwd_launches == gn.bwd_launches == n_norms * 2 * 2 * rounds
+    assert t.parameter_server_state.clock == 2 * rounds

@@ -11,8 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from distkeras_tpu_torch import (DecodeEngine, SingleTrainer, build_model,
-                                 generate)
+from distkeras_tpu_torch import (ADAG, DecodeEngine, SingleTrainer,
+                                 build_model, generate)
 from distkeras_tpu_torch.models import model_config
 
 # tiny shapes: one thread each keeps the parallel test workers off
@@ -54,14 +54,15 @@ def test_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["build_model", "generate",
-                                   "DecodeEngine", "SingleTrainer"])
+                                   "DecodeEngine", "SingleTrainer", "ADAG"])
 def test_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     call = {"build_model": lambda: build_model(CFG),
             "generate": lambda: generate(CFG, [[1, 2]], max_new_tokens=1),
             "DecodeEngine": lambda: DecodeEngine(CFG),
-            "SingleTrainer": lambda: SingleTrainer(CFG)}[entry]
+            "SingleTrainer": lambda: SingleTrainer(CFG),
+            "ADAG": lambda: ADAG(CFG)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
 
