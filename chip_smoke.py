@@ -5,9 +5,9 @@
 
 Phases, in order; any failure exits nonzero and prints no result:
 
-1. build every CUDA kernel of the serving, LM training and PS training
-   paths from ``csrc/`` (one ``nvcc`` per source, all started together)
-   and print the card's name and power limit;
+1. build every CUDA kernel of the serving, LM training, PS training and
+   fused ResNet paths from ``csrc/`` (one ``nvcc`` per source, all
+   started together) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (and a few more), with the tolerances below, and
    time kernel, plain version and the one PyTorch call that computes
@@ -48,7 +48,22 @@ Phases, in order; any failure exits nonzero and prints no result:
    round time (its second epoch's wall over its rounds), step time,
    images/s, MFU by analytic conv FLOPs, and one round of the trainer
    under ``torch.profiler``: idle share and device time by class;
-6. print the kernel table as one JSON line, then the device line last.
+6. the fused ResNet path: (a) hold the four fused-block kernels against
+   their plain versions at every call shape of ResNet-50's
+   ``fusion="pallas_block"`` path at batch 256 (12 fused-conv and 4 tail
+   shapes, bf16 and f32; ``TOL_FB*``), (b) time each per launch against
+   its bound, its plain version and the torch spelling of the same region
+   as ``fusion="none"`` runs it, (c) train ``scripts/perf_fused_e2e.py``'s
+   configuration (ResNet-50, 224 px, s2d stem, bf16, momentum at lr 0.1,
+   batch 256) through ``SingleTrainer`` for 2 epochs of 4 steps: exactly
+   20/20/16/16 launches of the four kernels per step, finite losses, the
+   epoch loss falling; the same from the same weights with ``fusion=
+   "none"``; two runs of two steps with bit-equal losses; both step times
+   in turns; two fused steps under ``torch.profiler``, (d) two steps of
+   ``fusion="pallas_tail", fusion_stages=(0, 1)`` at stages 1-1-1-1,
+   (e) step 1's gradients of ``pallas_block`` against ``fusion="none"``
+   at batch 32 (``TOL_GN_GNORM``/``TOL_GN_GRAD``);
+7. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -1151,6 +1166,670 @@ def _ps_train(seed, torch, np):
     return res, launches
 
 
+# ---- phase 6: the fused ResNet path (kernels #7-#10) -----------------
+
+# scripts/perf_fused_e2e.py's configuration, not cut: ResNet-50, 224 px,
+# s2d stem, bf16 compute, f32 masters, fusion="pallas_block" (every
+# bottleneck through the fused-block kernels), momentum SGD at lr 0.1,
+# batch 256; only the run length is short (2 epochs of 4 steps)
+FUSED = dict(num_classes=1000, stage_sizes=(3, 4, 6, 3), bottleneck=True,
+             stem="space_to_depth", norm="group", dtype="bfloat16",
+             fusion="pallas_block")
+FUSED_TRAIN = dict(loss="sparse_categorical_crossentropy",
+                   worker_optimizer="momentum", learning_rate=0.1,
+                   batch_size=256)
+FUSED_ROWS, FUSED_EPOCHS = 1024, 2
+FUSED_GRAD_BATCH = 32              # fused against unfused step-1 gradients
+# pallas_tail with fusion_stages at smaller depth: the tail-only block
+# and the per-class block names
+TAIL_RUN = dict(fusion="pallas_tail", fusion_stages=(0, 1),
+                stage_sizes=(1, 1, 1, 1))
+TAIL_ROWS = 512                    # 2 steps of 256
+# The kernels against their plain versions, per element scaled by
+# |plain| + rms(plain) as the GroupNorm kernels are held.  f32: summation
+# order only, 1e-4 for every output.  bf16: y and dres may round to the
+# neighbouring value (one ulp, 2^-7).  dx, dw, dy2 and the tail's out
+# are products of an intermediate rounded to bf16 (dy_raw, the tail's h
+# or dy3), which the two sides may round to neighbouring values at a few
+# elements: a flip moves an entry by up to ulp(term), a share of its
+# typical size that grows with the term's size, on top of the entry's
+# own rounding: 2^-6, as the flash backward is held (2^-7 failed on the
+# card, PERF.md).  The f32 parameter gradients: conv's dgamma, dbeta sum
+# unrounded terms (1e-4); the tail's dg2, db2, dg3, db3 sum terms behind
+# its rounded h or dy3 (2^-9)
+TOL_FB = {"bfloat16": 2 ** -7, "float32": 1e-4}
+TOL_FB_ROUNDED = {"bfloat16": 2 ** -6, "float32": 1e-4}
+TOL_FB_SUMS = 1e-4
+TOL_FB_TAIL_SUMS = {"bfloat16": 2 ** -9, "float32": 1e-4}
+# The two sides take their statistics in different orders, so a ReLU test
+# that sits at its boundary may go either way (and in bf16 a neighbouring
+# rounding of the tail's h moves z3 by ~1e-3 of its scale): the check's
+# inputs keep every test at least 2^-8 of its terms' size away from it.
+# Incoming gradients are zeroed there; the tail's inner test is moved by
+# nudging those y2 entries.  About 0.3 % of the elements.
+RELU_BAND = 2 ** -8
+FB_EPS = 1e-6
+FB_KERNELS = ("conv1x1_gn_fwd", "conv1x1_gn_bwd", "bottleneck_tail_fwd",
+              "bottleneck_tail_bwd")
+
+
+def _fb_counts(fb):
+    return dict(zip(FB_KERNELS, (fb.conv_gn_fwd_launches,
+                                 fb.conv_gn_bwd_launches,
+                                 fb.tail_fwd_launches,
+                                 fb.tail_bwd_launches)))
+
+
+def _reset_fb(fb):
+    fb.conv_gn_fwd_launches = fb.conv_gn_bwd_launches = 0
+    fb.tail_fwd_launches = fb.tail_bwd_launches = 0
+    fb.input_copies = fb.gradient_copies = 0
+
+
+def _map_block_params(sd):
+    """An unfused ``BottleneckBlock`` state_dict (``norm="group"``) ->
+    ``FusedBottleneckBlock``'s names and layouts (the JAX package's
+    ``tests/test_fused_block.py`` mapping, on the port's names)."""
+    def conv(i):
+        return sd[f"Conv_{i}.weight"][:, :, 0, 0].T.contiguous()
+
+    def gn(i, tag):
+        pre = f"AdaptiveGroupNorm_{i}.GroupNorm_0"
+        return {f"{tag}_scale": sd[f"{pre}.scale"],
+                f"{tag}_bias": sd[f"{pre}.bias"]}
+
+    out = {"conv1": conv(0), "conv2.weight": sd["Conv_1.weight"],
+           "conv3": conv(2), **gn(0, "gn1"), **gn(1, "gn2"), **gn(2, "gn3")}
+    if "Conv_3.weight" in sd:
+        out.update({"convd": conv(3), **gn(3, "gnd")})
+    return out
+
+
+def _fuse_params(sd):
+    """A ``fusion="none"`` ResNet's state_dict (or gradients) under
+    ``fusion="pallas_block"``'s names: ``BottleneckBlock_i`` ->
+    ``FusedBottleneckBlock_i``, the rest unchanged."""
+    out, blocks = {}, {}
+    for k, v in sd.items():
+        head, _, rest = k.partition(".")
+        if head.startswith("BottleneckBlock_"):
+            blocks.setdefault(head, {})[rest] = v
+        else:
+            out[k] = v
+    for head, bsd in blocks.items():
+        for k, v in _map_block_params(bsd).items():
+            out[f"Fused{head}.{k}"] = v
+    return out
+
+
+def _fused_shapes(fb, model, batch, torch):
+    """One forward at ``batch``: the calls of the two fused functions as
+    ``{(B, HW, Cin, Cout, G, relu): n}`` and ``{(B, HW, Cm, Cout, G2,
+    G3): n}`` (recorded around the module's entry points)."""
+    conv, tail = {}, {}
+    fwd, tail_fwd = fb.conv1x1_gn_fwd, fb.bottleneck_tail_fwd
+
+    def rec_conv(x3, w, gamma, beta, *, groups, eps=FB_EPS, relu=True):
+        key = (*x3.shape[:2], *w.shape, groups, relu)
+        conv[key] = conv.get(key, 0) + 1
+        return fwd(x3, w, gamma, beta, groups=groups, eps=eps, relu=relu)
+
+    def rec_tail(y2, w, g2, b2, g3, b3, res, *, groups2, groups3,
+                 eps=FB_EPS):
+        key = (*y2.shape[:2], *w.shape, groups2, groups3)
+        tail[key] = tail.get(key, 0) + 1
+        return tail_fwd(y2, w, g2, b2, g3, b3, res, groups2=groups2,
+                        groups3=groups3, eps=eps)
+
+    fb.conv1x1_gn_fwd, fb.bottleneck_tail_fwd = rec_conv, rec_tail
+    try:
+        with torch.no_grad():
+            model(torch.zeros(batch, IMAGE, IMAGE, 3, device="cuda"))
+    finally:
+        fb.conv1x1_gn_fwd, fb.bottleneck_tail_fwd = fwd, tail_fwd
+    return conv, tail
+
+
+def _away(t, terms):
+    """Where ``t`` (a ReLU test's value) lies within ``RELU_BAND`` of its
+    terms' size from 0."""
+    return t.abs() <= RELU_BAND * (terms + 1.0)
+
+
+def _conv_gn_case(fb, torch, gen, key, dtype):
+    """Inputs of ``fused_conv1x1_gn`` at ``key``: x, w (fan-in scaled),
+    gamma, beta, and an incoming gradient that is 0 where the ReLU test
+    sits at its boundary."""
+    b, hw, cin, cout, g, relu = key
+    x = torch.randn(b, hw, cin, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(cin, cout, device="cuda", generator=gen)
+         * cin ** -0.5).to(dtype)
+    gamma = torch.randn(cout, device="cuda", generator=gen) * 0.5 + 1
+    beta = torch.randn(cout, device="cuda", generator=gen) * 0.1
+    dy = torch.randn(b, hw, cout, device="cuda", generator=gen).to(dtype)
+    if relu:
+        y = x.float() @ w.float()
+        mean, inv = fb._gn_stats(y, g, FB_EPS)
+        t = (y - mean) * inv * gamma
+        dy = torch.where(_away(t + beta, t.abs() + beta.abs()), 0.0, dy)
+        del y, t
+    return x, w, gamma, beta, dy
+
+
+def _tail_case(fb, torch, gen, key, dtype):
+    """Inputs of ``fused_bottleneck_tail`` at ``key``: y2 (nudged where
+    h's ReLU test sits at its boundary), w, the four rows, the residual,
+    and an incoming gradient that is 0 where the final ReLU's test
+    does."""
+    b, hw, cm, cout, g2, g3 = key
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    y2 = (randn(b, hw, cm) * 2 + 0.5).to(dtype)
+    w = (randn(cm, cout) * cm ** -0.5).to(dtype)
+    p2 = (randn(cm) * 0.3 + 1, randn(cm) * 0.1)
+    p3 = (randn(cout) * 0.3 + 0.5, randn(cout) * 0.1)
+    res, dout = randn(b, hw, cout).to(dtype), randn(b, hw, cout).to(dtype)
+    for _ in range(5):
+        mean2, inv2 = fb._gn_stats(y2.float(), g2, FB_EPS)
+        t = (y2.float() - mean2) * inv2 * p2[0]
+        near = _away(t + p2[1], t.abs() + p2[1].abs())
+        if not near.any():
+            break
+        step = torch.where(t + p2[1] >= 0, 0.05, -0.05) / (inv2 * p2[0])
+        y2 = torch.where(near, y2.float() + step, y2.float()).to(dtype)
+    else:
+        raise SystemExit("could not move the tail's inputs off the ReLU "
+                         "boundary")
+    del mean2, inv2, t, near
+    chain = fb._tail_chain(y2, w, *p2, *p3, res, g2, g3, FB_EPS)
+    t = chain[4] * p3[0]
+    dout = torch.where(_away(chain[6], t.abs() + p3[1].abs()
+                             + res.float().abs()), 0.0, dout)
+    del chain, t
+    return y2, w, *p2, *p3, res, dout
+
+
+def _fb_tol(name, dname):
+    """The tolerance of output ``name`` in ``dname`` (see ``TOL_FB``)."""
+    if name in ("dx", "dw", "dy2", "out"):
+        return TOL_FB_ROUNDED[dname]
+    if name in ("dgamma", "dbeta"):
+        return TOL_FB_SUMS
+    if name in ("dg2", "db2", "dg3", "db3"):
+        return TOL_FB_TAIL_SUMS[dname]
+    return TOL_FB[dname]
+
+
+def _hold(kind, key, dname, names, got, want, torch):
+    row = {"kernel": kind, "key": list(key), "dtype": dname}
+    ok = True
+    for name, a, w in zip(names, got, want):
+        ratio = _ratio(a, w)
+        row[f"{name}_ratio"] = ratio
+        row[f"{name}_err"] = (a.float() - w.float()).abs().max().item()
+        ok = (ok and ratio <= _fb_tol(name, dname)
+              and bool(torch.isfinite(a).all()))
+    row["ok"] = ok
+    print(f"fused_block {row}")
+    if not ok:
+        raise SystemExit(f"the fused-block kernels disagree with their "
+                         f"plain versions: {row}")
+    return row
+
+
+def _check_fused(fb, torch, conv_keys, tail_keys):
+    """(a) The four kernels against their plain versions at every call
+    shape of the path, bf16 and f32, with the path's ReLU settings."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for key in conv_keys:
+        for dname in ("bfloat16", "float32"):
+            x, w, gamma, beta, dy = _conv_gn_case(fb, torch, gen, key,
+                                                  getattr(torch, dname))
+            kw = dict(groups=key[4], relu=key[5])
+            got = (fb.conv1x1_gn_fwd(x, w, gamma, beta, **kw),
+                   *fb.conv1x1_gn_bwd(x, w, gamma, beta, dy, **kw))
+            want = (fb.conv1x1_gn_fwd_reference(x, w, gamma, beta, **kw),
+                    *fb.conv1x1_gn_bwd_reference(x, w, gamma, beta, dy,
+                                                 **kw))
+            torch.cuda.synchronize()
+            rows.append(_hold("conv1x1_gn", key, dname,
+                              ("y", "dx", "dw", "dgamma", "dbeta"), got,
+                              want, torch))
+            del x, w, dy, got, want
+    for key in tail_keys:
+        for dname in ("bfloat16", "float32"):
+            args = _tail_case(fb, torch, gen, key, getattr(torch, dname))
+            kw = dict(groups2=key[4], groups3=key[5])
+            got = (fb.bottleneck_tail_fwd(*args[:7], **kw),
+                   *fb.bottleneck_tail_bwd(*args, **kw))
+            want = (fb.bottleneck_tail_fwd_reference(*args[:7], **kw),
+                    *fb.bottleneck_tail_bwd_reference(*args, **kw))
+            torch.cuda.synchronize()
+            rows.append(_hold("bottleneck_tail", key, dname,
+                              ("out", "dy2", "dw", "dg2", "db2", "dg3",
+                               "db3", "dres"), got, want, torch))
+            del args, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _fb_bound(kind, key, backward):
+    """Least time (ms) of one bf16 launch and what bounds it: each input
+    read once and each output written once (dw in f32, as the kernels
+    write it), and the products the function needs (the backward needs
+    the forward's product for its statistics, then two more)."""
+    b, hw, cin, cout = key[:4]
+    rows, item = b * hw, 2
+    rows_f = 4 * (2 * cout + (2 * cin if kind == "tail" else 0))
+    if kind == "conv":
+        nbytes = rows * (cin + cout) * item + cin * cout * item + rows_f
+        if backward:
+            nbytes += rows * cout * item + cin * cout * 4 + rows_f
+    else:
+        nbytes = rows * (cin + 2 * cout) * item + cin * cout * item + rows_f
+        if backward:
+            nbytes += rows * (cin + cout) * item + cin * cout * 4 + rows_f
+    flops = 2.0 * rows * cin * cout * (3 if backward else 1)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def _spelled_conv_gn(F, torch, x4, w4, gamma, beta, g, relu):
+    """``fusion="none"``'s spelling of the region: cuDNN's 1x1 conv, then
+    ``AdaptiveGroupNorm`` as the port runs it (``F.group_norm`` on the f32
+    upcast, ReLU, one rounding): 5 calls."""
+    y = F.group_norm(F.conv2d(x4, w4).float(), g, gamma, beta, eps=FB_EPS)
+    return (F.relu(y) if relu else y).to(x4.dtype)
+
+
+def _spelled_tail(F, torch, y24, w4, g2, b2, g3, b3, res4, groups2,
+                  groups3):
+    """The tail as ``BottleneckBlock`` spells it: GN2 + ReLU, the 1x1
+    conv, GN3, the residual add and ReLU: 11 calls."""
+    h = F.relu(F.group_norm(y24.float(), groups2, g2, b2, eps=FB_EPS)
+               ).to(y24.dtype)
+    z = F.group_norm(F.conv2d(h, w4).float(), groups3, g3, b3,
+                     eps=FB_EPS).to(y24.dtype)
+    return F.relu(res4 + z)
+
+
+SPELLED_CALLS = {"conv": 5, "tail": 11}
+
+
+def _img4(t):
+    """``[B, HW, C]`` rows -> a channels-last ``[B, C, HW, 1]`` view."""
+    return t.view(t.shape[0], t.shape[1], 1, t.shape[2]).permute(0, 3, 1, 2)
+
+
+def _time_fused(fb, torch, F, conv_mix, tail_mix):
+    """(b) Per launch at each call shape of the path, bf16: kernels,
+    plain versions and the torch spelling of the same region (forward by
+    graph replay; the spelling's backward by profiler device time)."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for kind, mix in (("conv", conv_mix), ("tail", tail_mix)):
+        for key in sorted(mix):
+            if kind == "conv":
+                args = _conv_gn_case(fb, torch, gen, key, torch.bfloat16)
+                kw = dict(groups=key[4], relu=key[5])
+                fwd, fwd_ref = fb.conv1x1_gn_fwd, fb.conv1x1_gn_fwd_reference
+                bwd, bwd_ref = fb.conv1x1_gn_bwd, fb.conv1x1_gn_bwd_reference
+                fargs = args[:4]
+                x4, w, gamma, beta, dy = args
+                leaves = [_img4(x4).detach().clone().requires_grad_(),
+                          w.t().reshape(key[3], key[2], 1, 1)
+                          .contiguous(memory_format=torch.channels_last)
+                          .requires_grad_(), gamma.clone()
+                          .requires_grad_(), beta.clone().requires_grad_()]
+                spell = (lambda a=leaves, k=key: _spelled_conv_gn(
+                    F, torch, *a, k[4], k[5]))
+            else:
+                args = _tail_case(fb, torch, gen, key, torch.bfloat16)
+                kw = dict(groups2=key[4], groups3=key[5])
+                fwd, fwd_ref = fb.bottleneck_tail_fwd, \
+                    fb.bottleneck_tail_fwd_reference
+                bwd, bwd_ref = fb.bottleneck_tail_bwd, \
+                    fb.bottleneck_tail_bwd_reference
+                fargs = args[:7]
+                y2, w, g2, b2, g3, b3, res, dy = args
+                leaves = [_img4(y2).detach().clone().requires_grad_(),
+                          w.t().reshape(key[3], key[2], 1, 1)
+                          .contiguous(memory_format=torch.channels_last)
+                          .requires_grad_()] + [
+                    p.clone().requires_grad_() for p in (g2, b2, g3, b3)] + [
+                    _img4(res).detach().clone().requires_grad_()]
+                spell = (lambda a=leaves, k=key: _spelled_tail(
+                    F, torch, *a, k[4], k[5]))
+            spelled = spell()
+            dy4 = _img4(dy)
+            row = {
+                "fwd_ms": _time_ms(lambda: fwd(*fargs, **kw), 5),
+                "fwd_plain_ms": _time_ms(lambda: fwd_ref(*fargs, **kw), 3),
+                "fwd_spelled_ms": _time_ms(spell, 5),
+                "bwd_ms": _time_ms(lambda: bwd(*args, **kw), 5),
+                "bwd_plain_ms": _time_ms(lambda: bwd_ref(*args, **kw), 3),
+                "bwd_spelled_ms": _profiled_ms(lambda: torch.autograd.grad(
+                    spelled, leaves, dy4, retain_graph=True), 5)}
+            for tag, backward in (("fwd", False), ("bwd", True)):
+                bound, by, flops, nbytes = _fb_bound(kind, key, backward)
+                row[f"{tag}_bound_ms"], row[f"{tag}_bound_by"] = bound, by
+                row[f"{tag}_gflop"], row[f"{tag}_mb"] = flops / 1e9, \
+                    nbytes / 1e6
+            out[(kind, key)] = row
+            print(f"timing {kind} {list(key)} bf16 (x{mix[key]} per step): "
+                  + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in row.items()))
+            del args, fargs, leaves, spelled, dy4
+            torch.cuda.empty_cache()
+    return out
+
+
+def _draw_norms(start, torch, np, seed):
+    """``start`` with its block norms' parameters drawn around their init
+    (scales 1 + 0.1 N, the zero-initialized ones 0.1 N, biases 0.05 N),
+    so every branch is live and every parameter has a gradient."""
+    rng = np.random.default_rng(seed)
+    drawn = {}
+    for k, v in start.items():
+        v = v.detach().float().cpu()
+        if k.endswith(("scale", "bias")) and "Dense" not in k:
+            noise = torch.from_numpy(
+                rng.standard_normal(v.shape).astype(np.float32))
+            v = 0.05 * noise if k.endswith("bias") else (v != 0) + 0.1 * noise
+        drawn[k] = v
+    return drawn
+
+
+def _fused_grads_agree(unfused_start, batch, torch, np):
+    """(c) Step 1's gradient of every parameter through ``pallas_block``
+    against ``fusion="none"`` from mapped weights on one batch, in f32
+    (cuDNN without TF32) and bf16."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch import build_model
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.ops.losses import resolve_loss
+
+    drawn = _draw_norms(unfused_start, torch, np, 10)
+
+    def grads(fusion, dtype):
+        sd = drawn if fusion == "none" else _fuse_params(drawn)
+        model = build_model(model_config(
+            "resnet", (IMAGE, IMAGE, 3),
+            **{**FUSED, "fusion": fusion, "dtype": dtype}), device="cuda")
+        params = {n: sd[n].to("cuda").requires_grad_()
+                  for n, _ in model.named_parameters()}
+        logits = functional_call(model, params, (batch["features"],))
+        loss = resolve_loss(FUSED_TRAIN["loss"])(logits, batch["label"])
+        out = torch.autograd.grad(loss, list(params.values()))
+        got = dict(zip(params, out))
+        return (got if fusion != "none" else _fuse_params(got),
+                float(loss.detach()))
+
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        got, loss_f = grads("pallas_block", dtype)
+        want, loss_u = grads("none", dtype)
+        total = torch.stack([g.norm() for g in want.values()]).norm().item()
+        norm = torch.stack([g.norm() for g in got.values()]).norm().item()
+        gdiff = abs(norm / total - 1)
+        worst = {}
+        for name, g in got.items():
+            scale = max(want[name].norm().item(), 1e-3 * total)
+            worst[name] = (g - want[name]).norm().item() / scale
+        top = max(worst, key=worst.get)
+        res[dtype] = {"loss": [loss_f, loss_u], "grad_norm_rel_diff": gdiff,
+                      "worst_rel_err": worst[top], "worst_param": top}
+        print(f"fused: step 1 {dtype} at batch {FUSED_GRAD_BATCH}: loss "
+              f"pallas_block {loss_f:.6f} vs none {loss_u:.6f}; global "
+              f"grad norm relative diff {gdiff:.4g} (tolerance "
+              f"{TOL_GN_GNORM}); largest per-parameter relative error "
+              f"{worst[top]:.4g} ({top})")
+        if not gdiff <= TOL_GN_GNORM:
+            raise SystemExit(f"pallas_block and none step-1 gradient norms "
+                             f"disagree in {dtype}")
+        if dtype == "float32":
+            bad = {n: e for n, e in worst.items() if not e <= TOL_GN_GRAD}
+            if bad:
+                raise SystemExit(f"step 1 gradients in f32, pallas_block "
+                                 f"against none: relative errors {bad}")
+    return res
+
+
+# device time by class on the fused path: the fused-block kernels (their
+# namespace), the convolutions (cuDNN's kernels and layout transforms;
+# the head's small product lands here too), the stem's F.group_norm, the
+# optimizer by its range, the rest (casts, pads, pooling, the loss)
+FUSED_CLASSES = (("fused_block", ("fused_block::",)),
+                 ("stem_group_norm", ("RowwiseMoments", "ComputeFusedParams",
+                                      "GroupNorm", "group_norm",
+                                      "ComputeInternalGradients",
+                                      "ComputeBackwardFusedParams",
+                                      "GammaBeta", "Compute1dBackward")),
+                 ("conv_gemm", PS_CLASSES[2][1]))
+
+
+def _fused_profile(step, state, batch, wall, steps, torch):
+    """``steps`` fused steps under ``torch.profiler`` (host and device):
+    device time by class, idle share against ``wall``, the same steps'
+    unprofiled time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof, torch)
+    classes = {name: 0.0 for name, _ in FUSED_CLASSES}
+    classes["other"] = 0.0
+    for kname, ms in kernels.items():
+        cls = next((name for name, marks in FUSED_CLASSES
+                    if any(m in kname for m in marks)), "other")
+        classes[cls] += ms
+    opt = sum(ev.device_time_total / 1e3 for ev in prof.events()
+              if ev.name == "optimizer_update"
+              and ev.device_type == torch.autograd.DeviceType.CPU)
+    classes["optimizer"] = opt
+    classes["other"] -= opt
+    busy = sum(kernels.values())
+    per = {k: v / steps for k, v in classes.items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    print(f"fused profile: {steps} steps, unprofiled {wall * 1e3:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / 1e3 / wall:.4f}; per step by class (ms): "
+          + " ".join(f"{k}={v:.3f}" for k, v in per.items()))
+    for name, ms in top:
+        print(f"fused profile:   {ms / steps:9.3f} ms/step  {name[:90]}")
+    return {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / 1e3 / wall, "by_class_ms_per_step": per,
+            "top_kernels_ms": dict(top)}
+
+
+def _step_ms(step, state, batch, torch, np, n=6):
+    """Median wall of steps 2..n of ``step``, each ending in a
+    synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.monotonic()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    return float(np.median(times[1:])) * 1e3, [t * 1e3 for t in times]
+
+
+def _fused_train(seed, torch, np, fb, conv_mix, tail_mix, fwd_flops):
+    """(d)-(g): SingleTrainer trains the fused ResNet-50 (``conv_mix``,
+    ``tail_mix``: its calls per step); the unfused model trains from the
+    same weights; determinism; step times of both in turns; profiled
+    fused steps; pallas_tail with fusion_stages; then (c)."""
+    from distkeras_tpu_torch import SingleTrainer, build_model
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.workers import (TrainState, make_train_step,
+                                             resolve_optimizer)
+
+    t_phase = time.monotonic()
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **FUSED)
+    ref_cfg = model_config("resnet", (IMAGE, IMAGE, 3),
+                           **{**FUSED, "fusion": "none"})
+    # flax's init of the unfused model, drawn from the seed
+    unfused_start = build_model(ref_cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(seed + 4))
+    start = _fuse_params(unfused_start)
+    t0 = time.monotonic()
+    data = datasets.imagenet_synth(FUSED_ROWS, image_size=IMAGE,
+                                   num_classes=FUSED["num_classes"],
+                                   seed=seed)
+    print(f"fused: imagenet_synth({FUSED_ROWS}) made in "
+          f"{time.monotonic() - t0:.1f} s")
+    trainer = SingleTrainer(cfg, num_epoch=FUSED_EPOCHS, seed=seed,
+                            **FUSED_TRAIN)
+    per_step = {"conv1x1_gn_fwd": sum(conv_mix.values()),
+                "conv1x1_gn_bwd": sum(conv_mix.values()),
+                "bottleneck_tail_fwd": sum(tail_mix.values()),
+                "bottleneck_tail_bwd": sum(tail_mix.values())}
+    steps = FUSED_EPOCHS * (FUSED_ROWS // FUSED_TRAIN["batch_size"])
+    torch.cuda.synchronize()
+    _reset_fb(fb)
+    trainer.train(data, initial_variables=start)
+    torch.cuda.synchronize()
+    launches = _fb_counts(fb)
+    copies = (fb.input_copies, fb.gradient_copies)
+    loss = trainer.step_metrics["loss"]
+    epochs = trainer.history["epoch_loss"]
+    print(f"fused: pallas_block steps={len(loss)} epoch_loss={epochs} "
+          f"step losses {np.round(loss, 5).tolist()} launches={launches} "
+          f"(per step {per_step}) input_copies={copies[0]} "
+          f"gradient_copies={copies[1]} training_time_s="
+          f"{trainer.training_time:.3f}")
+    # one fused conv per block and one per stage's projection, one tail
+    # per block: 20/20/16/16 at ResNet-50's depth
+    blocks = sum(FUSED["stage_sizes"])
+    convs = blocks + len(FUSED["stage_sizes"])
+    want = {k: n * steps for k, n in zip(FB_KERNELS, (convs, convs, blocks,
+                                                      blocks))}
+    if launches != want or {k: n * steps for k, n in per_step.items()} \
+            != want:
+        raise SystemExit(f"fused kernel launches {launches}; expected "
+                         f"{want} ({convs}/{convs}/{blocks}/{blocks} per "
+                         f"step)")
+    if len(loss) != steps or not np.isfinite(loss).all():
+        raise SystemExit("non-finite or missing fused training losses")
+    if not epochs[1] < epochs[0]:
+        raise SystemExit(f"fused epoch loss did not fall: {epochs}")
+
+    # the unfused model from the same weights on the same data
+    ref = SingleTrainer(ref_cfg, num_epoch=FUSED_EPOCHS, seed=seed,
+                        **FUSED_TRAIN)
+    ref.train(data, initial_variables=unfused_start)
+    ref_epochs = ref.history["epoch_loss"]
+    ref_loss = ref.step_metrics["loss"]
+    print(f"fused: fusion='none' from the same weights: epoch_loss="
+          f"{ref_epochs} step losses {np.round(ref_loss, 5).tolist()}; "
+          f"first step loss diff {abs(loss[0] - ref_loss[0]):.6g}")
+
+    # determinism: the same two steps twice from the same start
+    tx = resolve_optimizer(FUSED_TRAIN["worker_optimizer"],
+                           FUSED_TRAIN["learning_rate"])
+    step = make_train_step(trainer.model, FUSED_TRAIN["loss"], tx)
+    b = FUSED_TRAIN["batch_size"]
+    batches = [{c: torch.from_numpy(data[c][i * b:(i + 1) * b]).to("cuda")
+                for c in ("features", "label")} for i in range(2)]
+    runs = []
+    for _ in range(2):
+        state = TrainState.create(trainer.model, start, tx, device="cuda")
+        runs.append([float(step(state, bt)[1]["loss"]) for bt in batches])
+        del state
+    print(f"fused: two runs of steps 1-2 from one start: {runs[0]} and "
+          f"{runs[1]}")
+    if runs[0] != runs[1]:
+        raise SystemExit("the fused training step is not deterministic")
+
+    # step times, fused and unfused in turns on the trained weights
+    ref_step = make_train_step(ref.model, FUSED_TRAIN["loss"], tx)
+    fstate = TrainState.create(trainer.model, trainer.trained_variables, tx,
+                               device="cuda")
+    ustate = TrainState.create(ref.model, ref.trained_variables, tx,
+                               device="cuda")
+    times = {"pallas_block": [], "none": []}
+    for name, st_, fn in (("pallas_block", fstate, step),
+                          ("none", ustate, ref_step),
+                          ("none", ustate, ref_step),
+                          ("pallas_block", fstate, step)):
+        times[name].append(_step_ms(fn, st_, batches[0], torch, np))
+    step_ms = {k: float(np.mean([m for m, _ in v])) for k, v in times.items()}
+    train_flops = 3.0 * fwd_flops * b
+    res = {"steps": int(len(loss)), "epoch_loss": epochs,
+           "step_loss": loss.tolist(), "launches_per_step": per_step,
+           "input_copies": copies[0], "gradient_copies": copies[1],
+           "none_epoch_loss": ref_epochs, "none_step_loss": ref_loss.tolist(),
+           "determinism_losses": runs, "training_time_s":
+           trainer.training_time, "step_ms": step_ms,
+           "step_ms_runs": {k: [t for _, t in v] for k, v in times.items()},
+           "images_per_s": {k: b / v * 1e3 for k, v in step_ms.items()},
+           "mfu": {k: train_flops / (v / 1e3) / PEAK_FLOPS["bfloat16"]
+                   for k, v in step_ms.items()},
+           "conv_mix": {str(k): n for k, n in conv_mix.items()},
+           "tail_mix": {str(k): n for k, n in tail_mix.items()}}
+    print(f"fused: step_ms (median of steps 2-6, mean of 2 turns each) "
+          f"{step_ms} images_per_s {res['images_per_s']} mfu {res['mfu']} "
+          f"(analytic conv FLOPs x3 against 989 TFLOP/s)")
+    del ustate, ref, ref_step
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    for _ in range(2):
+        step(fstate, batches[0])
+    torch.cuda.synchronize()
+    res["profile"] = _fused_profile(step, fstate, batches[0],
+                                    time.monotonic() - t0, 2, torch)
+    del fstate
+    torch.cuda.empty_cache()
+
+    # pallas_tail with fusion_stages, at smaller depth
+    tail_cfg = model_config("resnet", (IMAGE, IMAGE, 3),
+                            **{**FUSED, **TAIL_RUN})
+    tail_tr = SingleTrainer(tail_cfg, num_epoch=1, seed=seed, **FUSED_TRAIN)
+    names = tail_tr.model.block_names
+    before, copies0 = _fb_counts(fb), fb.input_copies
+    tail_tr.train(data.take(TAIL_ROWS))
+    torch.cuda.synchronize()
+    after = _fb_counts(fb)
+    t_loss = tail_tr.step_metrics["loss"]
+    t_steps = TAIL_ROWS // b
+    n_fused = sum(n.startswith("Fused") for n in names)
+    delta = {k: after[k] - before[k] for k in after}
+    print(f"fused: pallas_tail fusion_stages={TAIL_RUN['fusion_stages']} "
+          f"stages={TAIL_RUN['stage_sizes']} blocks={names} losses="
+          f"{t_loss.tolist()} launches={delta} input_copies="
+          f"{fb.input_copies - copies0}")
+    if delta != {"conv1x1_gn_fwd": 0, "conv1x1_gn_bwd": 0,
+                 "bottleneck_tail_fwd": n_fused * t_steps,
+                 "bottleneck_tail_bwd": n_fused * t_steps} \
+            or names != ["FusedBottleneckBlock_0", "FusedBottleneckBlock_1",
+                         "BottleneckBlock_0", "BottleneckBlock_1"] \
+            or not np.isfinite(t_loss).all():
+        raise SystemExit("pallas_tail run: launches, block names or losses "
+                         "off")
+    res["pallas_tail"] = {"blocks": names, "losses": t_loss.tolist(),
+                          "launches": delta}
+    del tail_tr, trainer
+    torch.cuda.empty_cache()
+
+    batch0 = {c: torch.from_numpy(data[c][:FUSED_GRAD_BATCH]).to("cuda")
+              for c in ("features", "label")}
+    res["step1_grads"] = _fused_grads_agree(unfused_start, batch0, torch,
+                                            np)
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"fused: phase took {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -1175,6 +1854,7 @@ def main() -> int:
     from distkeras_tpu_torch import convert
     from distkeras_tpu_torch.models import model_config
     from distkeras_tpu_torch.ops import _build, attention
+    from distkeras_tpu_torch.ops import fused_block as fb
     from distkeras_tpu_torch.ops import group_norm as gn
 
     # full-f32 matmuls in the plain versions; no reduced-precision
@@ -1186,7 +1866,7 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------
     t0 = time.monotonic()
     libs = _build.build(["flash_attention_fwd", "flash_attention_bwd",
-                         "group_norm"])
+                         "group_norm", "fused_block"])
     print(f"build: {time.monotonic() - t0:.1f} s")
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -1314,8 +1994,26 @@ def main() -> int:
     gn_timing = _time_group_norm(gn, torch, F, gn_mix)
     torch.cuda.empty_cache()
     ps, ps_counts = _ps_train(args.seed, torch, np)
+    torch.cuda.empty_cache()
 
-    # ---- 6. kernel table ---------------------------------------------
+    # ---- 6. fused ResNet path -----------------------------------------
+    # the path's fused calls per step, read off one forward at batch 256
+    probe = build_model(model_config("resnet", (IMAGE, IMAGE, 3), **FUSED),
+                        device="cuda")
+    conv_mix, tail_mix = _fused_shapes(fb, probe, FUSED_TRAIN["batch_size"],
+                                       torch)
+    del probe
+    print(f"fused_block: the path's calls [B, HW, Cin, Cout, G, relu] x "
+          f"per step: {sorted(conv_mix.items())}; tail [B, HW, Cm, Cout, "
+          f"G2, G3]: {sorted(tail_mix.items())}")
+    fb_rows = _check_fused(fb, torch, sorted(conv_mix), sorted(tail_mix))
+    fb_timing = _time_fused(fb, torch, F, conv_mix, tail_mix)
+    torch.cuda.empty_cache()
+    fused, fb_counts = _fused_train(args.seed, torch, np, fb, conv_mix,
+                                    tail_mix,
+                                    ps["fwd_gflop_per_image"] * 1e9)
+
+    # ---- 7. kernel table ---------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts); the backward
     # kernels run on the training path only
@@ -1372,6 +2070,40 @@ def main() -> int:
             "ms": gn_mean(f"{pre}_ms"), "plain_ms": gn_mean(f"{pre}_plain_ms"),
             "bound_ms": gn_mean(f"{pre}_bound_ms"), "bound_by": "bytes",
             "library_ms": gn_mean(f"{pre}_library_ms")})
+    # the fused kernels' numbers are launch-weighted over the path's
+    # call shapes; "library" is null: no one PyTorch call computes these
+    # functions, and the torch spelling of the region (n calls) stands
+    # beside it
+    for name, kind, pre, line, outs in (
+            ("conv1x1_gn_fwd", "conv", "fwd", 94, ("y",)),
+            ("conv1x1_gn_bwd", "conv", "bwd", 105, ("dx",)),
+            ("bottleneck_tail_fwd", "tail", "fwd", 235, ("out",)),
+            ("bottleneck_tail_bwd", "tail", "bwd", 249, ("dy2", "dres"))):
+        mix = conv_mix if kind == "conv" else tail_mix
+        n_all = sum(mix.values())
+
+        def fb_mean(field, kind=kind, mix=mix, n_all=n_all):
+            return sum(n * fb_timing[(kind, k)][field]
+                       for k, n in mix.items()) / n_all
+
+        by_ops = sum(n for k, n in mix.items()
+                     if fb_timing[(kind, k)][f"{pre}_bound_by"]
+                     == "operations")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distkeras_tpu_torch/csrc/fused_block.cu",
+            "replaces": f"distkeras_tpu/ops/fused_block.py:{line}",
+            "launches": fb_counts[name],
+            "launches_by_path": {"fused_train": fb_counts[name]},
+            "max_abs_err": max(r[f"{o}_err"] for r in fb_rows for o in outs
+                               if r["dtype"] == "bfloat16"
+                               and r["kernel"] == name.rsplit("_", 1)[0]),
+            "ms": fb_mean(f"{pre}_ms"), "plain_ms": fb_mean(f"{pre}_plain_ms"),
+            "bound_ms": fb_mean(f"{pre}_bound_ms"),
+            "bound_by": "operations" if 2 * by_ops >= n_all else "bytes",
+            "library_ms": None,
+            "torch_spelling_ms": fb_mean(f"{pre}_spelled_ms"),
+            "torch_spelling_calls": SPELLED_CALLS[kind]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -1387,7 +2119,10 @@ def main() -> int:
             "group_norm_checks": gn_rows,
             "group_norm_timing": [{"key": list(k), "per_step": gn_mix[k],
                                    **v} for k, v in gn_timing.items()],
-            "ps_train": ps, "kernels": kernels}, indent=1))
+            "ps_train": ps, "fused_block_checks": fb_rows,
+            "fused_block_timing": [{"kind": k[0], "key": list(k[1]), **v}
+                                   for k, v in fb_timing.items()],
+            "fused_train": fused, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,9 @@ HWIO -> OIHW, Dense ``[in, out]`` -> ``[out, in]``); ``bias`` and a
 norm's ``scale`` keep their names and values.  Both GroupNorm
 spellings map as they nest: ``AdaptiveGroupNorm_i/GroupNorm_0/scale``
 (``norm="group"``) and ``AdaptiveGroupNorm_i/scale``
-(``norm="group_pallas"``).
+(``norm="group_pallas"``).  The fused bottleneck's raw ``[C_in, C_out]``
+kernels (``conv1``, ``convd``, ``conv3``) keep flax's layout, the one its
+kernels read, so they copy unchanged both ways.
 """
 
 from __future__ import annotations

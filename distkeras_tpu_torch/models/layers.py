@@ -15,8 +15,10 @@ size pads ``(0, 1)`` where torch's ``padding=1`` would pad ``(1, 1)``.
 ``FlaxInit.init_params`` draws flax's default initializers once:
 kernels ``lecun_normal`` (truncated normal, std ``fan_in ** -0.5``),
 biases 0, norm scales 1 (0 where a block zero-inits its last norm) and
-norm biases 0.  Modules are built on the meta device, so torch's own
-initializers draw nothing.
+norm biases 0.  A module whose leaves have other names (the fused
+bottleneck's raw ``[C_in, C_out]`` kernels and ``gn1_scale``) names their
+initializers in a ``flax_init`` dict.  Modules are built on the meta
+device, so torch's own initializers draw nothing.
 """
 
 from __future__ import annotations
@@ -36,11 +38,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TRUNC_STD = 0.87962566103423978
 
 
-def lecun_normal(shape, generator=None) -> torch.Tensor:
-    """flax ``lecun_normal`` for a torch weight ``[out, in, *kernel]``:
-    truncated normal of std ``fan_in ** -0.5``, ``fan_in = in *
-    prod(kernel)``."""
-    std = math.prod(shape[1:]) ** -0.5 / _TRUNC_STD
+def lecun_normal(shape, generator=None, fan_in=None) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal of std ``fan_in ** -0.5``;
+    for a torch weight ``[out, in, *kernel]`` ``fan_in`` defaults to ``in
+    * prod(kernel)``."""
+    if fan_in is None:
+        fan_in = math.prod(shape[1:])
+    std = fan_in ** -0.5 / _TRUNC_STD
     return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std,
                                  2 * std, generator=generator)
 
@@ -117,7 +121,10 @@ def max_pool_same(x, window: int, stride: int):
 class FlaxInit(nn.Module):
     """A model whose parameters come from one draw of flax's default
     initializers (``init_params``).  A module holding a norm ``scale``
-    sets ``zero_scale = True`` where flax's ``scale_init`` is zeros."""
+    sets ``zero_scale = True`` where flax's ``scale_init`` is zeros; one
+    with other leaves maps their names to ``"lecun_in"`` (a raw ``[in,
+    out]`` kernel, fan-in ``in``) or ``"ones"`` in ``flax_init``; any
+    other leaf is zeros."""
 
     def _init_from_flax(self):
         self.load_state_dict(self.init_params(), assign=True)
@@ -132,8 +139,14 @@ class FlaxInit(nn.Module):
         out = {}
         for mname, mod in self.named_modules():
             pre = f"{mname}." if mname else ""
+            named = getattr(mod, "flax_init", {})
             for leaf, p in mod.named_parameters(recurse=False):
-                if leaf == "weight":
+                if named.get(leaf) == "lecun_in":
+                    out[pre + leaf] = lecun_normal(tuple(p.shape), generator,
+                                                   fan_in=p.shape[0])
+                elif named.get(leaf) == "ones":
+                    out[pre + leaf] = torch.ones(p.shape)
+                elif leaf == "weight":
                     out[pre + leaf] = lecun_normal(tuple(p.shape), generator)
                 elif leaf == "scale" and not getattr(mod, "zero_scale",
                                                      False):

@@ -5,7 +5,10 @@ The same configurations: basic and bottleneck blocks, stems ``conv``
 (7x7/s2) and ``space_to_depth`` (the exact 4x4/s1 re-layout of the 7x7/s2
 stem over a 2x2 phase fold), norms ``group`` (``F.group_norm``),
 ``group_pallas`` (the hand-written GroupNorm kernels of
-``ops/group_norm.py``) and ``none``; bf16 compute with f32 parameters.
+``ops/group_norm.py``) and ``none``; bf16 compute with f32 parameters;
+``fusion="pallas_block"`` / ``"pallas_tail"`` (``fusion_stages``), the
+bottleneck lowered through the fused-block kernels of
+``ops/fused_block.py`` (``FusedBottleneckBlock``).
 The model takes the JAX config's NHWC input and runs its activations as
 channels-last ``[B, C, H, W]`` tensors (``layers.py``), the layout the
 GroupNorm kernels read as ``[B, HW, C]`` without a copy.
@@ -13,9 +16,10 @@ GroupNorm kernels read as ``[B, HW, C]`` without a copy.
 Parameters keep flax's module names (``Conv_0``, ``AdaptiveGroupNorm_0``,
 ``BottleneckBlock_3``, ``Dense_0``, with ``GroupNorm_0`` nested under
 ``AdaptiveGroupNorm_i`` for ``norm="group"`` as flax nests it), so
-``convert`` maps a JAX tree leaf by leaf.  ``norm="batch"`` (running
-statistics, worker-local model state) and ``fusion`` (the fused-block
-kernels) are not ported yet.
+``convert`` maps a JAX tree leaf by leaf.  flax numbers the blocks per
+class, so ``fusion_stages=(0, 1)`` gives ``FusedBottleneckBlock_0..6``
+then ``BottleneckBlock_0..8``.  ``norm="batch"`` (running statistics,
+worker-local model state) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 from distkeras_tpu_torch.models.core import register_model
 from distkeras_tpu_torch.models.layers import (Conv, Dense, FlaxInit,
                                                compute_dtype, max_pool_same)
+from distkeras_tpu_torch.ops import fused_block
 from distkeras_tpu_torch.ops.group_norm import group_norm
 
 def _unsupported(key: str, item: str):
@@ -181,6 +186,85 @@ class BottleneckBlock(nn.Module):
         return F.relu(residual + y)
 
 
+class FusedBottleneckBlock(nn.Module):
+    """The bottleneck block through the fused-block kernels: the first
+    1x1 conv + GN + ReLU is one kernel, the downsample projection
+    (conv1x1 + GN) a second, and the 3x3 conv's GN, the second 1x1 conv,
+    its GN, the residual add and the final ReLU a third; the 3x3 conv
+    stays cuDNN's.  The same math as ``BottleneckBlock`` with
+    ``norm="group"``.  With ``fuse_op1=False`` (``fusion="pallas_tail"``)
+    the first 1x1 conv and the downsample stay ``Conv`` +
+    ``AdaptiveGroupNorm`` and only the tail is fused.
+
+    Parameters are flax's flat tree: ``conv1``, ``convd``, ``conv3`` raw
+    ``[C_in, C_out]`` kernels (the JAX layout, which the kernels read),
+    ``gn{1,2,3,d}_scale`` / ``_bias``, and ``conv2`` a nested conv; or,
+    with ``fuse_op1=False``, ``conv1u``, ``gn1u``, ``convdu``, ``gndu``
+    nested.  ``flax_init`` names the leaves that ``FlaxInit`` does not
+    draw as zeros."""
+
+    def __init__(self, in_channels: int, filters: int, stride: int,
+                 dtype: torch.dtype, fuse_op1: bool = True):
+        super().__init__()
+        out = 4 * filters
+        self.dtype, self.stride, self.fuse_op1 = dtype, stride, fuse_op1
+        self.g_mid, self.g_out = math.gcd(32, filters), math.gcd(32, out)
+        self.project = in_channels != out or stride != 1
+        self.flax_init = {"conv3": "lecun_in", "gn2_scale": "ones"}
+        if fuse_op1:
+            self._raw("conv1", "gn1", in_channels, filters)
+        else:
+            self.conv1u = Conv(in_channels, filters, (1, 1), use_bias=False,
+                               dtype=dtype)
+            self.gn1u = AdaptiveGroupNorm(filters, relu=True)
+        self.conv2 = Conv(filters, filters, (3, 3), stride, use_bias=False,
+                          dtype=dtype)
+        if self.project and fuse_op1:
+            self._raw("convd", "gnd", in_channels, out)
+        elif self.project:
+            self.convdu = Conv(in_channels, out, (1, 1), stride,
+                               use_bias=False, dtype=dtype)
+            self.gndu = AdaptiveGroupNorm(out)
+        self.conv3 = nn.Parameter(torch.empty(filters, out))
+        for name, c in (("gn2", filters), ("gn3", out)):
+            setattr(self, f"{name}_scale", nn.Parameter(torch.empty(c)))
+            setattr(self, f"{name}_bias", nn.Parameter(torch.empty(c)))
+        # gn3_scale stays zeros: the block starts as the identity
+
+    def _raw(self, conv, norm, cin, cout):
+        """A fused 1x1 conv's raw kernel and its norm's parameters."""
+        setattr(self, conv, nn.Parameter(torch.empty(cin, cout)))
+        setattr(self, f"{norm}_scale", nn.Parameter(torch.empty(cout)))
+        setattr(self, f"{norm}_bias", nn.Parameter(torch.empty(cout)))
+        self.flax_init.update({conv: "lecun_in", f"{norm}_scale": "ones"})
+
+    def forward(self, x):
+        dt = self.dtype
+        if self.fuse_op1:
+            x = fused_block.channels_last(x)
+            y = fused_block.fused_conv1x1_gn(
+                x, self.conv1.to(dt), self.gn1_scale, self.gn1_bias,
+                groups=self.g_mid, relu=True)
+        else:
+            y = self.gn1u(self.conv1u(x))
+        y = self.conv2(y)
+        if not self.project:
+            residual = x
+        elif self.fuse_op1:
+            s = self.stride
+            residual = fused_block.fused_conv1x1_gn(
+                fused_block.channels_last(x[:, :, ::s, ::s]),
+                self.convd.to(dt), self.gnd_scale, self.gnd_bias,
+                groups=self.g_out, relu=False)
+        else:
+            residual = self.gndu(self.convdu(x))
+        return fused_block.fused_bottleneck_tail(
+            fused_block.channels_last(y), self.conv3.to(dt), self.gn2_scale,
+            self.gn2_bias, self.gn3_scale, self.gn3_bias,
+            fused_block.channels_last(residual), groups2=self.g_mid,
+            groups3=self.g_out)
+
+
 @register_model("resnet")
 class ResNet(FlaxInit):
     """Configurable ResNet on NHWC input; ``stage_sizes=(3,4,6,3),
@@ -201,9 +285,7 @@ class ResNet(FlaxInit):
                     f"fusion={fusion!r} implements the GroupNorm "
                     f"bottleneck block only (norm='group', "
                     f"bottleneck=True)")
-            raise _unsupported(f"fusion={fusion!r}",
-                               "the kernel table, kernels #7-#10")
-        if fusion != "none":
+        elif fusion != "none":
             raise ValueError(f"unknown fusion {fusion!r}")
         if stem not in ("conv", "space_to_depth"):
             raise ValueError(f"unknown stem {stem!r}")
@@ -227,17 +309,26 @@ class ResNet(FlaxInit):
                                    use_bias=False, dtype=cd)
             self.AdaptiveGroupNorm_0 = make_norm(width, relu=True)
             block = BottleneckBlock if bottleneck else BasicBlock
-            chans, i = width, 0
+            chans, counts, self.block_names = width, {}, []
             for stage, size in enumerate(stage_sizes):
+                fuse = fusion != "none" and (fusion_stages is None
+                                             or stage in fusion_stages)
                 for j in range(size):
                     stride = 2 if stage > 0 and j == 0 else 1
                     filters = width * 2 ** stage
-                    self.add_module(f"{block.__name__}_{i}",
-                                    block(chans, filters, stride, make_norm,
-                                          cd))
+                    if fuse:
+                        mod = FusedBottleneckBlock(
+                            chans, filters, stride, cd,
+                            fuse_op1=fusion == "pallas_block")
+                    else:
+                        mod = block(chans, filters, stride, make_norm, cd)
+                    # flax numbers each class's instances on its own
+                    kind = type(mod).__name__
+                    name = f"{kind}_{counts.get(kind, 0)}"
+                    counts[kind] = counts.get(kind, 0) + 1
+                    self.add_module(name, mod)
+                    self.block_names.append(name)
                     chans = 4 * filters if bottleneck else filters
-                    i += 1
-            self.num_blocks, self.block_name = i, block.__name__
             self.Dense_0 = Dense(chans, num_classes)
         self._init_from_flax()
 
@@ -248,8 +339,8 @@ class ResNet(FlaxInit):
         x = x.permute(0, 3, 1, 2)       # NHWC -> channels-last NCHW view
         x = self.AdaptiveGroupNorm_0(self.Conv_0(x))
         x = max_pool_same(x, 3, 2)
-        for i in range(self.num_blocks):
-            x = getattr(self, f"{self.block_name}_{i}")(x)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
         return self.Dense_0(x.mean(dim=(2, 3)))
 
 

@@ -2,8 +2,9 @@
 (forward and backward) and GroupNorm kernels (forward and backward)
 against their plain versions, the serving path launching the forward
 kernel, a training step through the three flash kernels, a ResNet's
-gradients through the GroupNorm kernels against ``F.group_norm``, and
-ADAG's rounds launching them.
+gradients through the GroupNorm kernels against ``F.group_norm``,
+ADAG's rounds launching them, and the fused-block kernels against their
+plain versions, their launches per step and a deterministic fused step.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -305,3 +306,104 @@ def test_adag_round_launches_both_kernels_per_group_norm(card):
     assert rounds == 2 and np.isfinite(t.history["round_loss"]).all()
     assert gn.fwd_launches == gn.bwd_launches == n_norms * 2 * 2 * rounds
     assert t.parameter_server_state.clock == 2 * rounds
+
+
+# the fused-block kernels at three ResNet-50 path shapes each (batch 4)
+# and one off every tile edge; inputs and tolerances as chip_smoke.py's
+# phase 6 draws and states them
+FB_CONV_KEYS = [(4, 3136, 64, 64, 32, True), (4, 784, 256, 512, 32, False),
+                (4, 49, 2048, 512, 32, True), (2, 37, 40, 24, 8, True)]
+FB_TAIL_KEYS = [(4, 3136, 64, 256, 32, 32), (4, 196, 256, 1024, 32, 32),
+                (4, 49, 512, 2048, 32, 32), (2, 37, 24, 40, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind,key", [("conv", k) for k in FB_CONV_KEYS]
+                         + [("tail", k) for k in FB_TAIL_KEYS])
+def test_fused_block_kernels_match_plain(card, kind, key, dtype):
+    import chip_smoke as cs
+    from distkeras_tpu_torch.ops import fused_block as fb
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(sum(key))
+    before = cs._fb_counts(fb)
+    if kind == "conv":
+        args = cs._conv_gn_case(fb, torch, gen, key, getattr(torch, dtype))
+        kw = dict(groups=key[4], relu=key[5])
+        got = (fb.conv1x1_gn_fwd(*args[:4], **kw),
+               *fb.conv1x1_gn_bwd(*args, **kw))
+        want = (fb.conv1x1_gn_fwd_reference(*args[:4], **kw),
+                *fb.conv1x1_gn_bwd_reference(*args, **kw))
+        names = ("y", "dx", "dw", "dgamma", "dbeta")
+        launched = ("conv1x1_gn_fwd", "conv1x1_gn_bwd")
+    else:
+        args = cs._tail_case(fb, torch, gen, key, getattr(torch, dtype))
+        kw = dict(groups2=key[4], groups3=key[5])
+        got = (fb.bottleneck_tail_fwd(*args[:7], **kw),
+               *fb.bottleneck_tail_bwd(*args, **kw))
+        want = (fb.bottleneck_tail_fwd_reference(*args[:7], **kw),
+                *fb.bottleneck_tail_bwd_reference(*args, **kw))
+        names = ("out", "dy2", "dw", "dg2", "db2", "dg3", "db3", "dres")
+        launched = ("bottleneck_tail_fwd", "bottleneck_tail_bwd")
+    torch.cuda.synchronize()
+    after = cs._fb_counts(fb)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in launched) for k in after}
+    assert got[0].dtype == getattr(torch, dtype)
+    for name, a, w in zip(names, got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _ratio(a, w) <= cs._fb_tol(name, dtype), (name, _ratio(a, w))
+
+
+def _fused_cfg(**kw):
+    return _resnet_cfg("group", **{"fusion": "pallas_block", **kw})
+
+
+def test_fused_resnet_step_launches_each_kernel_per_block(card):
+    """One training step of a small fused ResNet: each fused conv (one
+    per block, one per projection) and each tail launches its forward and
+    backward kernel once."""
+    import chip_smoke as cs
+    from distkeras_tpu_torch.ops import fused_block as fb
+    from distkeras_tpu_torch.workers import (TrainState, make_train_step,
+                                             resolve_optimizer)
+
+    for kw, want in ((dict(), (4, 4, 2, 2)),
+                     (dict(fusion="pallas_tail"), (0, 0, 2, 2)),
+                     (dict(fusion_stages=(1,)), (2, 2, 1, 1))):
+        model = build_model(_fused_cfg(**kw))
+        tx = resolve_optimizer("momentum", 0.01)
+        state = TrainState.create(model, model.state_dict(), tx)
+        step = make_train_step(model, "sparse_categorical_crossentropy", tx)
+        rng = np.random.default_rng(0)
+        batch = {"features": torch.from_numpy(rng.standard_normal(
+                     (4, 32, 32, 3)).astype(np.float32)).cuda(),
+                 "label": torch.from_numpy(rng.integers(0, 5, 4)).cuda()}
+        before = cs._fb_counts(fb)
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        after = cs._fb_counts(fb)
+        assert tuple(after[k] - before[k] for k in cs.FB_KERNELS) == want, kw
+        assert np.isfinite(float(metrics["loss"]))
+
+
+def test_fused_training_is_deterministic(card):
+    """Two runs of the same two steps from one start give bit-equal
+    losses: no atomics, partials folded in a fixed order."""
+    from distkeras_tpu_torch.workers import (TrainState, make_train_step,
+                                             resolve_optimizer)
+
+    model = build_model(_fused_cfg())
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tx = resolve_optimizer("momentum", 0.1)
+    step = make_train_step(model, "sparse_categorical_crossentropy", tx)
+    rng = np.random.default_rng(1)
+    batch = {"features": torch.from_numpy(rng.standard_normal(
+                 (8, 32, 32, 3)).astype(np.float32)).cuda(),
+             "label": torch.from_numpy(rng.integers(0, 5, 8)).cuda()}
+    runs = []
+    for _ in range(2):
+        state = TrainState.create(model, start, tx)
+        runs.append([float(step(state, batch)[1]["loss"]) for _ in range(2)])
+    assert runs[0] == runs[1]

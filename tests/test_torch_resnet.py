@@ -90,18 +90,33 @@ def test_mlp_and_convnet_forward_match_jax():
                                                  widths=(8, 16), dense=32))
 
 
-@pytest.mark.parametrize("norm", ["group", "group_pallas"])
+ROUND_TRIPS = {"group": dict(norm="group"),
+               "group_pallas": dict(norm="group_pallas"),
+               "pallas_block": dict(fusion="pallas_block"),
+               "pallas_tail": dict(fusion="pallas_tail"),
+               "fusion_stages": dict(fusion="pallas_block",
+                                     fusion_stages=(1,))}
+
+
+@pytest.mark.parametrize("norm", list(ROUND_TRIPS))
 def test_convert_round_trip_for_both_group_norm_nestings(norm):
     """The port's tree has the JAX model's paths and shapes, with
     ``GroupNorm_0`` nested for ``norm="group"`` only, and maps both ways
-    without loss."""
-    kw = dict(num_classes=3, stage_sizes=(1,), bottleneck=True, width=16,
-              norm=norm)
+    without loss; so do the fused trees (``pallas_block``'s raw ``[C_in,
+    C_out]`` kernels, ``pallas_tail``'s nested ``conv1u``/``gn1u``, and
+    ``fusion_stages``' blocks numbered per class)."""
+    kw = dict(num_classes=3, stage_sizes=(1, 1), bottleneck=True, width=16,
+              **ROUND_TRIPS[norm])
     sd = build_model(model_config("resnet", (16, 16, 3), **kw),
                      device="cpu").state_dict()
     nested = [k for k in sd if "AdaptiveGroupNorm" in k]
-    assert nested and all((".GroupNorm_0." in k) == (norm == "group")
+    assert nested and all((".GroupNorm_0." in k) == (norm != "group_pallas")
                           for k in nested)
+    if "fusion" in ROUND_TRIPS[norm]:
+        blocks = {k.split(".")[0] for k in sd if "Block_" in k}
+        assert blocks == ({"FusedBottleneckBlock_0", "BottleneckBlock_0"}
+                          if norm == "fusion_stages" else
+                          {"FusedBottleneckBlock_0", "FusedBottleneckBlock_1"})
     tree = convert.params_to_flax(sd)
     shapes = jax.eval_shape(_jax_model("resnet", (16, 16, 3), **kw).init,
                             jax.random.key(0),
@@ -121,9 +136,17 @@ def test_default_init_follows_flax():
     """Each parameter's std and mean against the JAX ResNet's init: conv
     and dense kernels within 10 % of the JAX std (the mean within five
     standard errors of 0) where a draw has >= 4k values; norm scales, norm biases and
-    dense biases exactly 1 or 0 — the block's last norm scale 0."""
-    kw = dict(num_classes=64, stage_sizes=(1, 1), bottleneck=True,
-              width=32, norm="group_pallas", stem="space_to_depth")
+    dense biases exactly 1 or 0 — the block's last norm scale 0.  The
+    fused model's raw ``[C_in, C_out]`` kernels (``conv1``, ``convd``,
+    ``conv3``) are lecun-normal with fan-in ``C_in``, ``gn{1,2,d}_scale``
+    ones and ``gn3_scale`` zeros, as flax draws them."""
+    for spelling in ({"norm": "group_pallas"}, {"fusion": "pallas_block"}):
+        _init_follows_flax(dict(num_classes=64, stage_sizes=(1, 1),
+                                bottleneck=True, width=32,
+                                stem="space_to_depth", **spelling))
+
+
+def _init_follows_flax(kw):
     params = jax.jit(_jax_model("resnet", (32, 32, 3), **kw).init)(
         jax.random.key(0), jnp.zeros((1, 32, 32, 3)))["params"]
     want = {jax.tree_util.keystr(p): np.asarray(x) for p, x in
@@ -137,9 +160,11 @@ def test_default_init_follows_flax():
     zero_scales = 0
     for key, w in want.items():
         g = got[key]
-        if not key.endswith("['kernel']"):
+        if not key.endswith(("['kernel']", "['conv1']", "['convd']",
+                             "['conv3']")):
             np.testing.assert_array_equal(g, w, err_msg=key)
-            zero_scales += key.endswith("['scale']") and not w.any()
+            zero_scales += key.endswith(("['scale']", "['gn3_scale']")) \
+                and not w.any()
             continue
         if w.size >= 4096:
             assert abs(g.std() / w.std() - 1) < 0.1, (key, g.std(), w.std())
@@ -167,10 +192,17 @@ def test_unported_spellings_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(model_config("resnet", (16, 16, 3), norm="batch",
                                  **base), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(model_config("resnet", (16, 16, 3),
+    fused = build_model(model_config("resnet", (16, 16, 3),
+                                     fusion="pallas_block", **base),
+                        device="cpu")
+    assert fused.block_names == ["FusedBottleneckBlock_0"]
+    with pytest.raises(ValueError, match="fusion"):
+        build_model(model_config("resnet", (16, 16, 3), bottleneck=False,
                                  fusion="pallas_block", **base),
                     device="cpu")
+    with pytest.raises(ValueError, match="unknown fusion"):
+        build_model(model_config("resnet", (16, 16, 3), fusion="blocked",
+                                 **base), device="cpu")
     with pytest.raises(ValueError, match="fusion"):
         build_model(model_config("resnet", (16, 16, 3), norm="none",
                                  fusion="pallas_tail", **base),
