@@ -5,9 +5,10 @@
 
 Phases, in order; any failure exits nonzero and prints no result:
 
-1. build every CUDA kernel of the serving, LM training, PS training and
-   fused ResNet paths from ``csrc/`` (one ``nvcc`` per source, all
-   started together) and print the card's name and power limit;
+1. build every CUDA kernel of the serving, LM training, PS training,
+   fused ResNet and sequence-parallel paths from ``csrc/`` (one ``nvcc``
+   per source, all started together) and print the card's name and
+   power limit;
 2. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (and a few more), with the tolerances below, and
    time kernel, plain version and the one PyTorch call that computes
@@ -63,7 +64,25 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``fusion="pallas_tail", fusion_stages=(0, 1)`` at stages 1-1-1-1,
    (e) step 1's gradients of ``pallas_block`` against ``fusion="none"``
    at batch 32 (``TOL_GN_GNORM``/``TOL_GN_GRAD``);
-7. print the kernel table as one JSON line, then the device line last.
+7. the sequence-parallel LM path (ring attention over an in-process
+   ring of 4 ranks run in turn on the card, every hop through kernels
+   #3-#4): (a) hold the three hop kernels against their plain versions
+   at the path's [4, 12, 2048, 64] (bf16 and f32; diagonal, past and
+   dead hops; one hop without the mask; one at D 128), a dead hop
+   passing the state bit for bit, (b) time each per launch by hop kind
+   against its bound, its plain version and SDPA's flash kernel (and
+   its backward) on the same block, (c) train the JAX package's
+   long-context configuration (L12, d768, 12 heads, vocab 32768, T
+   8192, batch 4, bf16, adam 3e-4) with ``seq_axis="seq"`` and
+   ``ring_attn_fn("seq", impl="flash")`` for 2 epochs of 4 steps
+   through ``make_train_step``: exactly 192 launches of each hop kernel
+   per step, none of kernels #1-#2, finite and falling losses, (d) the
+   ``flash_attn=True`` twin from the same start: first 3 losses and
+   step 1's gradients within ``TOL_TRAIN_*``, (e) step 1's gradients of
+   the ring against dense attention at T 2048, (f) two runs of two
+   steps with bit-equal losses, (g) step time, tokens/s, MFU and two
+   steps under ``torch.profiler``;
+8. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -564,7 +583,8 @@ def _train(seed, torch, np):
     return res, launches
 
 
-def _first_grads_agree(flash, dense, start, batch, loss, torch):
+def _first_grads_agree(flash, dense, start, batch, loss, torch,
+                       what="flash against dense"):
     """Step 1's gradient of every parameter through ``flash`` against
     ``dense``, from the f32 ``start`` cast to each module's dtypes as
     the training step casts it; raises past ``TOL_TRAIN_GRAD``.  Returns
@@ -598,9 +618,9 @@ def _first_grads_agree(flash, dense, start, batch, loss, torch):
             ok = err <= TOL_TRAIN_GRAD
         worst[kind] = max(worst.get(kind, 0.0), err)
         if not ok:
-            raise SystemExit(f"step 1 gradient of {name}: flash against "
-                             f"dense relative error {err:.4g}")
-    print(f"train: step 1 gradients flash vs dense, largest relative "
+            raise SystemExit(f"step 1 gradient of {name}: {what} "
+                             f"relative error {err:.4g}")
+    print(f"train: step 1 gradients {what}, largest relative "
           f"error by kind: " + " ".join(f"{k}={v:.3g}"
                                          for k, v in worst.items()))
     return worst
@@ -1830,6 +1850,418 @@ def _fused_train(seed, torch, np, fb, conv_mix, tail_mix, fwd_flops):
     return res, launches
 
 
+# ---- phase 7: sequence-parallel LM training (ring attention, #3-#4) ---
+
+# The JAX package's long-context row "L12 d768, T=8192 b4 (32k tokens)"
+# (its PERF.md §19 at 3509981, run there with remat_blocks, which the
+# port does not need on 80 GB), trained as examples/lm_seq_parallel.py
+# trains it (adam, a step of make_train_step on lm_synth rows, the epoch
+# order drawn from seed + epoch), with every attention layer a ring of 4
+# (T_local 2048) through the hop kernels; widths not cut
+SEQ_LM = dict(vocab_size=32768, num_layers=12, d_model=768, num_heads=12,
+              mlp_ratio=4, max_len=8192, dtype="bfloat16")
+SEQ_T, SEQ_RING, SEQ_BATCH, SEQ_ROWS, SEQ_EPOCHS = 8192, 4, 4, 16, 2
+SEQ_LR = 3e-4
+SEQ_DENSE_T = 2048                   # (e) ring against dense attention
+HOP_SHAPE = (4, 12, 2048, 64)        # [B, H, T_local, D] of each hop
+HOP_KERNELS = ("flash_hop_fwd", "flash_hop_bwd_dq", "flash_hop_bwd_dkv")
+# (q block, k block, causal) as ring ranks: the diagonal hop, a past
+# block, a future block (dead: nothing to do, the state passes), and a
+# past block without the causal mask
+HOPS = {"diagonal": (1, 1, True), "past": (3, 1, True),
+        "dead": (1, 2, True), "full": (1, 0, False)}
+# a ring of n runs n diagonal, n(n-1)/2 past and n(n-1)/2 dead hops per
+# layer and direction
+HOP_MIX = {"diagonal": SEQ_RING, "past": SEQ_RING * (SEQ_RING - 1) // 2,
+           "dead": SEQ_RING * (SEQ_RING - 1) // 2}
+# the hop checks' tolerances: acc, dq, dk, dv per element as the flash
+# backward's (TOL_GRAD): each is an f32 sum over the block of products
+# with a P or ds that the kernel and the plain version may round to
+# neighbouring bf16 values (f32: summation order and expf); m to TOL_LSE
+# absolute and l to TOL_LSE of itself: f32 statistics, summation order
+# only; a dead hop passes the state and the carried sums bit for bit,
+# and a carried sum takes the partial by one exact f32 add.
+# (shape, hop, dtype) of the checks beside the path's [4,12,2048,64] ones
+# (D 128 is where the backward kernels and their plain versions sum in
+# different orders, so these cases are what test the dq, dk, dv limit;
+# T_local 2000 puts the ring offsets and the diagonal off the 64-row
+# tiles)
+HOP_EXTRA = (((2, 4, 2048, 128), "past", "bfloat16"),
+             ((4, 12, 2048, 128), "diagonal", "bfloat16"),
+             ((4, 12, 2000, 128), "diagonal", "bfloat16"))
+# device time by class on the sequence-parallel step
+SEQ_CLASSES = (("hop_kernels", ("flash_hop::",)),
+               ("products", KERNEL_CLASSES[3][1]))
+
+
+def _hop_counts(attention):
+    return {"flash_hop_fwd": attention.hop_fwd_launches,
+            "flash_hop_bwd_dq": attention.hop_dq_launches,
+            "flash_hop_bwd_dkv": attention.hop_dkv_launches}
+
+
+def _reset_hops(attention):
+    attention.hop_fwd_launches = 0
+    attention.hop_dq_launches = 0
+    attention.hop_dkv_launches = 0
+
+
+def _hop_case(attention, torch, gen, shape, dtype, hop):
+    """One hop's inputs as the ring makes them: the state the diagonal
+    hop left (the initial state for the diagonal hop itself), and the
+    backward's final lse and dsum = rowsum(dO.O) of that state."""
+    b, h, t, d = shape
+    qb, kb, causal = HOPS[hop]
+    q, k, v, do, k0, v0 = (torch.randn(b, h, t, d, device="cuda",
+                                       dtype=dtype, generator=gen)
+                           for _ in range(6))
+    kw = dict(q_offset=qb * t, k_offset=kb * t, scale=d ** -0.5,
+              causal=causal)
+    m = torch.full((b, h, t), -1e30, device="cuda")
+    l = torch.zeros(b, h, t, device="cuda")
+    acc = torch.zeros(b, h, t, d, device="cuda")
+    if hop != "diagonal":
+        m, l, acc = attention.flash_hop_fwd_reference(
+            q, k0, v0, m, l, acc, q_offset=qb * t, k_offset=qb * t,
+            scale=d ** -0.5, causal=True)
+    fm, fl, facc = attention.flash_hop_fwd_reference(q, k, v, m, l, acc,
+                                                     **kw)
+    out = facc / fl.unsqueeze(-1)
+    dsum = (do.float() * out).sum(-1)
+    return (q, k, v, do, m, l, acc, fm + torch.log(fl), dsum), kw
+
+
+def _check_hops(attention, torch):
+    """(a) each hop kernel against its plain version on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(HOP_SHAPE, hop, dname) for dname in ("bfloat16", "float32")
+             for hop in ("diagonal", "past", "dead")]
+    cases += [(HOP_SHAPE, "full", "bfloat16")] + list(HOP_EXTRA)
+    rows = []
+    for shape, hop, dname in cases:
+        (q, k, v, do, m, l, acc, lse, dsum), kw = _hop_case(
+            attention, torch, gen, shape, getattr(torch, dname), hop)
+        got = attention.flash_hop_fwd(q, k, v, m.clone(), l.clone(),
+                                      acc.clone(), **kw)
+        want = attention.flash_hop_fwd_reference(q, k, v, m, l, acc, **kw)
+        args = (q, k, v, do, lse, dsum)
+        grads = attention.flash_hop_bwd(*args, **kw)
+        want_grads = (attention.flash_hop_bwd_dq_reference(*args, **kw),
+                      *attention.flash_hop_bwd_dkv_reference(*args, **kw))
+        # the path's form: partials added to carried f32 sums, in place
+        carried = [torch.randn_like(g) for g in grads]
+        summed = attention.flash_hop_bwd(
+            *args, dq=carried[0].clone(), dk=carried[1].clone(),
+            dv=carried[2].clone(), **kw)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "dtype": dname, "hop": hop,
+               "q_offset": kw["q_offset"], "k_offset": kw["k_offset"],
+               "causal": kw["causal"],
+               "m_err": (got[0] - want[0]).abs().max().item(),
+               "l_rel_err": ((got[1] - want[1]).abs()
+                             / want[1].abs().clamp_min(1e-30)).max().item()}
+        ok = row["m_err"] <= TOL_LSE and row["l_rel_err"] <= TOL_LSE
+        for name, a, w in zip(("acc", "dq", "dk", "dv"), (got[2],) + grads,
+                              (want[2],) + want_grads):
+            diff = (a - w).abs()
+            rms = w.square().mean().sqrt()
+            row[f"{name}_err"] = diff.max().item()
+            row[f"{name}_ratio"] = ((diff / (w.abs() + rms)).max().item()
+                                    if rms > 0 else diff.max().item())
+            ok = (ok and row[f"{name}_ratio"] <= TOL_GRAD[dname]
+                  and bool(torch.isfinite(a).all()))
+        row["carry_exact"] = all(torch.equal(s, c + g) for s, c, g
+                                 in zip(summed, carried, grads))
+        ok = ok and row["carry_exact"]
+        if hop == "dead":
+            row["dead_bit_equal"] = all(
+                torch.equal(a, w) for a, w in zip(got + grads,
+                                                  (m, l, acc) + want_grads))
+            ok = ok and row["dead_bit_equal"]
+        row["ok"] = ok
+        print(f"hop {row}")
+        if not ok:
+            raise SystemExit(f"a hop kernel disagrees with its plain "
+                             f"version: {row}")
+        rows.append(row)
+    return rows
+
+
+def _hop_bound(kernel, shape, hop):
+    """Least time (ms) and what bounds it for one hop of ``kernel`` at
+    bf16: its products over the pairs the mask leaves (the kernels'
+    own: 2 forward, 3 for dq, 4 for dk/dv, the split recomputing q.k^T
+    and do.v^T), and its tensors read once and written once: q, k, v
+    (and do, lse, dsum) read, the f32 state or carried sums read and
+    written.  A dead hop has nothing to do: 0."""
+    b, h, t, d = shape
+    pairs = {"diagonal": t * (t + 1) / 2, "past": t * t, "full": t * t,
+             "dead": 0}[hop]
+    if not pairs:
+        return 0.0, "bytes"
+    products, tensors, state = {"flash_hop_fwd": (2, 3, 2 * d + 4),
+                                "flash_hop_bwd_dq": (3, 4, 2 * d),
+                                "flash_hop_bwd_dkv": (4, 4, 4 * d)}[kernel]
+    flops = 2 * products * b * h * pairs * d
+    nbytes = (tensors * b * h * t * d * 2 + b * h * t * state * 4
+              + (2 * b * h * t * 4 if kernel != "flash_hop_fwd" else 0))
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _time_hops(attention, torch):
+    """(b) each hop kernel per launch at the path's shape, bf16, by hop
+    kind, against its bound, its plain version and the library
+    yardstick: the flash kernel of SDPA on the same block (causal for
+    the diagonal hop, full for a past one; it returns out and lse and
+    merges no state), its backward for #4.  A dead hop has no library
+    call to time: its ``library_ms`` is None."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for hop in ("diagonal", "past", "dead"):
+        (q, k, v, do, m, l, acc, lse, dsum), kw = _hop_case(
+            attention, torch, gen, HOP_SHAPE, torch.bfloat16, hop)
+        args = (q, k, v, do, lse, dsum)
+        dq, dk, dv = (torch.zeros(q.shape, device="cuda") for _ in range(3))
+        calls = {
+            "flash_hop_fwd": (
+                lambda: attention.flash_hop_fwd(q, k, v, m, l, acc, **kw),
+                lambda: attention.flash_hop_fwd_reference(q, k, v, m, l,
+                                                          acc, **kw)),
+            "flash_hop_bwd_dq": (
+                lambda: attention.flash_hop_bwd_dq(*args, dq=dq, **kw),
+                lambda: attention.flash_hop_bwd_dq_reference(*args, dq=dq,
+                                                             **kw)),
+            "flash_hop_bwd_dkv": (
+                lambda: attention.flash_hop_bwd_dkv(*args, dk=dk, dv=dv,
+                                                    **kw),
+                lambda: attention.flash_hop_bwd_dkv_reference(
+                    *args, dk=dk, dv=dv, **kw))}
+        lib = {"fwd": None, "bwd": None}
+        if hop != "dead":
+            causal = hop == "diagonal"
+            sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+            lib["fwd"] = _time_ms(lambda: sdpa(q, k, v, 0.0, causal, False,
+                                               scale=kw["scale"]), 10)
+            ql, kl, vl = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            res = sdpa(ql, kl, vl, 0.0, causal, False, scale=kw["scale"])
+            lib["bwd"] = _profiled_ms(lambda: torch.autograd.grad(
+                res[0], (ql, kl, vl), do, retain_graph=True), 10)
+        for name, (kernel, plain) in calls.items():
+            bound, by = _hop_bound(name, HOP_SHAPE, hop)
+            row = {"ms": _time_ms(kernel, 20 if hop == "dead" else 5),
+                   "plain_ms": _time_ms(plain, 3), "bound_ms": bound,
+                   "bound_by": by,
+                   "library_ms": lib["fwd" if name == "flash_hop_fwd"
+                                     else "bwd"]}
+            out[(name, hop)] = row
+            print(f"timing {name} {list(HOP_SHAPE)} bf16 {hop}: kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"sdpa flash {row['library_ms']} ms, bound "
+                  f"{bound:.5f} ms ({by})")
+    return out
+
+
+def _seq_profile(step, state, batches, wall, torch):
+    """Two ring steps under ``torch.profiler``: device time by class
+    and the idle share against the same steps' unprofiled ``wall``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            step(state, batch)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof, torch)
+    classes = {name: 0.0 for name, _ in SEQ_CLASSES}
+    classes["elementwise_copies"] = 0.0
+    for kname, ms in kernels.items():
+        cls = next((name for name, marks in SEQ_CLASSES
+                    if any(m in kname for m in marks)),
+                   "elementwise_copies")
+        classes[cls] += ms
+    busy = sum(kernels.values())
+    n = len(batches)
+    per = {k: v / n for k, v in classes.items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    res = {"steps": n, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "idle_share": 1 - busy / 1e3 / wall, "by_class_ms_per_step": per,
+           "top_kernels_ms": dict(top)}
+    print(f"seq profile: {n} steps, unprofiled {wall * 1e3:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {res['idle_share']:.4f}; per "
+          f"step by class (ms): "
+          + " ".join(f"{k}={v:.3f}" for k, v in per.items()))
+    for name, ms in top:
+        print(f"seq profile:   {ms / n:9.3f} ms/step  {name[:90]}")
+    return res
+
+
+def _seq_train(seed, torch, np):
+    """(c)-(g): the sequence-parallel LM trains over InProcessRing(4);
+    the flash_attn=True twin from the same start; the ring against
+    dense attention at T 2048; determinism; step time and profile."""
+    from distkeras_tpu_torch import build_model, convert
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.ops import attention
+    from distkeras_tpu_torch.parallel import ring_attention as ring
+    from distkeras_tpu_torch.workers import (TrainState, make_train_step,
+                                             resolve_optimizer)
+
+    t_phase = time.monotonic()
+    loss_name = "sparse_categorical_crossentropy"
+
+    def build(**over):
+        return build_model(model_config("transformer_lm", (SEQ_T,),
+                                        input_dtype="int32",
+                                        **{**SEQ_LM, **over}))
+
+    seq_model = build(seq_axis="seq",
+                      attn_fn=ring.ring_attn_fn("seq", impl="flash"))
+    n_params = sum(p.numel() for p in seq_model.parameters())
+    start = convert.params_from_flax(
+        _flax_tree(np.random.default_rng(seed + 3), SEQ_LM))
+    data = datasets.lm_synth(SEQ_ROWS, seq_len=SEQ_T,
+                             vocab_size=SEQ_LM["vocab_size"], seed=seed)
+    batches = []
+    for epoch in range(SEQ_EPOCHS):
+        order = np.random.default_rng(seed + epoch).permutation(SEQ_ROWS)
+        for s in range(SEQ_ROWS // SEQ_BATCH):
+            rows = order[s * SEQ_BATCH:(s + 1) * SEQ_BATCH]
+            batches.append({k: torch.from_numpy(data[k][rows]).cuda()
+                            for k in ("features", "label")})
+    tx = resolve_optimizer("adam", SEQ_LR)
+    ring4 = ring.InProcessRing(SEQ_RING)
+
+    def bound(fn):
+        return ring.sequence_sharded_apply(fn, ring4, "seq",
+                                           num_seq_args=0)
+
+    step = bound(make_train_step(seq_model, loss_name, tx))
+    state = TrainState.create(seq_model, start, tx, device="cuda")
+    per_step = SEQ_RING ** 2 * SEQ_LM["num_layers"]
+
+    # (c) train: counts set to 0 just before, read just after
+    losses, gnorms, times = [], [], []
+    torch.cuda.synchronize()
+    _reset_hops(attention)
+    _reset_counts(attention)
+    for i, batch in enumerate(batches):
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+        if i == 0:
+            first = _hop_counts(attention)
+    launches = _hop_counts(attention)
+    flash_counts = _counts(attention)
+    steps = len(batches)
+    per_epoch = SEQ_ROWS // SEQ_BATCH
+    epochs = [float(np.mean(losses[e * per_epoch:(e + 1) * per_epoch]))
+              for e in range(SEQ_EPOCHS)]
+    print(f"seq train: params={n_params} steps={steps} epoch_loss={epochs} "
+          f"launches={launches} (step 1: {first}) device-local flash "
+          f"launches={flash_counts}")
+    print(f"seq train: step losses {np.round(losses, 4).tolist()}")
+    print(f"seq train: grad norms {np.round(gnorms, 4).tolist()}")
+    if any(n != per_step for n in first.values()) \
+            or any(n != per_step * steps for n in launches.values()):
+        raise SystemExit(f"hop kernel launches {launches} (step 1: "
+                         f"{first}); expected {per_step} each a step")
+    if any(flash_counts.values()):
+        raise SystemExit(f"the ring path launched a device-local flash "
+                         f"kernel: {flash_counts}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise SystemExit("non-finite ring training losses")
+    if not epochs[1] < epochs[0]:
+        raise SystemExit(f"ring epoch loss did not fall: {epochs}")
+
+    # (d) the flash_attn=True twin (kernels #1-#2, no ring) from the
+    # same start on the same first 3 batches
+    flash_model = build(flash_attn=True)
+    flash_step = make_train_step(flash_model, loss_name, tx)
+    fstate = TrainState.create(flash_model, start, tx, device="cuda")
+    hops_before = _hop_counts(attention)
+    flash_losses, flash_gnorms = [], []
+    for batch in batches[:3]:
+        fstate, metrics = flash_step(fstate, batch)
+        flash_losses.append(metrics["loss"].item())
+        flash_gnorms.append(metrics["grad_norm"].item())
+    del fstate
+    flash_gnorm = flash_gnorms[0]
+    if _hop_counts(attention) != hops_before:
+        raise SystemExit("the flash_attn=True twin launched a hop kernel")
+    diff = np.abs(np.array(flash_losses) - losses[:3])
+    gdiff = abs(flash_gnorm / gnorms[0] - 1)
+    print(f"seq train: flash_attn=True first 3 losses {flash_losses} vs "
+          f"ring {losses[:3]}: max |diff| {diff.max():.6g} (tolerance "
+          f"{TOL_TRAIN_LOSS}); step 1 grad_norm {flash_gnorm:.6g} vs "
+          f"{gnorms[0]:.6g}: relative diff {gdiff:.6g} (tolerance "
+          f"{TOL_TRAIN_GNORM})")
+    if not diff.max() <= TOL_TRAIN_LOSS:
+        raise SystemExit("ring and flash_attn=True losses disagree")
+    if not gdiff <= TOL_TRAIN_GNORM:
+        raise SystemExit("ring and flash_attn=True step-1 gradient norms "
+                         "disagree")
+    flash_err = bound(lambda _: _first_grads_agree(
+        seq_model, flash_model, start, batches[0], loss_name, torch,
+        "ring against flash_attn=True"))(None)
+    del flash_model
+    torch.cuda.empty_cache()
+
+    # (e) the ring against dense attention at T 2048 (T_local 512)
+    short = {k: v[:, :SEQ_DENSE_T].contiguous()
+             for k, v in batches[0].items()}
+    dense_model = build(attn="dense")
+    dense_err = bound(lambda _: _first_grads_agree(
+        seq_model, dense_model, start, short, loss_name, torch,
+        f"ring against dense attention at T {SEQ_DENSE_T}"))(None)
+    del dense_model
+    torch.cuda.empty_cache()
+
+    # (f) two runs of two ring steps from one start: the same bits
+    def two_steps():
+        st = TrainState.create(seq_model, start, tx, device="cuda")
+        return [step(st, b)[1]["loss"].item() for b in batches[:2]]
+
+    runs = [two_steps(), two_steps()]
+    print(f"seq train: determinism, two runs of two steps: {runs}")
+    if runs[0] != runs[1]:
+        raise SystemExit(f"ring training is not deterministic: {runs}")
+
+    # (g) step time (median of steps 2-6 of (c)), rates, profile of two
+    # further steps against the unprofiled wall of (c)'s last two
+    step_s = float(np.median(times[1:6]))
+    tokens = SEQ_BATCH * SEQ_T
+    f_param, f_attn = _lm_flops(SEQ_LM, n_params, SEQ_BATCH)
+    peak = PEAK_FLOPS["bfloat16"]
+    res = {"params": n_params, "steps": steps, "epoch_loss": epochs,
+           "step_loss": losses, "grad_norm": gnorms,
+           "launches_per_step": first, "launches": launches,
+           "flash_first_losses": flash_losses,
+           "flash_max_abs_diff": float(diff.max()),
+           "flash_grad_norm_rel_diff": float(gdiff),
+           "step1_grad_rel_err_vs_flash": flash_err,
+           "step1_grad_rel_err_vs_dense_t2048": dense_err,
+           "determinism_losses": runs,
+           "step_ms": step_s * 1e3, "step_ms_all": [x * 1e3 for x in times],
+           "tokens_per_s": tokens / step_s,
+           "mfu_6nd": f_param / step_s / peak,
+           "mfu_with_attn": (f_param + f_attn) / step_s / peak}
+    print(f"seq train: step_ms={res['step_ms']:.3f} (median of steps 2-6; "
+          f"all {np.round(res['step_ms_all'], 3).tolist()}) tokens_per_s="
+          f"{res['tokens_per_s']:.1f} mfu_6nd={res['mfu_6nd']:.4f} "
+          f"mfu_with_attn={res['mfu_with_attn']:.4f} (against 989 TFLOP/s)")
+    res["profile"] = _seq_profile(step, state, batches[-2:],
+                                  sum(times[-2:]), torch)
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"seq train: phase took {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -1866,7 +2298,7 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------
     t0 = time.monotonic()
     libs = _build.build(["flash_attention_fwd", "flash_attention_bwd",
-                         "group_norm", "fused_block"])
+                         "group_norm", "fused_block", "flash_hop"])
     print(f"build: {time.monotonic() - t0:.1f} s")
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -2012,8 +2444,15 @@ def main() -> int:
     fused, fb_counts = _fused_train(args.seed, torch, np, fb, conv_mix,
                                     tail_mix,
                                     ps["fwd_gflop_per_image"] * 1e9)
+    torch.cuda.empty_cache()
 
-    # ---- 7. kernel table ---------------------------------------------
+    # ---- 7. sequence-parallel LM training path -------------------------
+    hop_rows = _check_hops(attention, torch)
+    hop_timing = _time_hops(attention, torch)
+    torch.cuda.empty_cache()
+    seq, hop_counts = _seq_train(args.seed, torch, np)
+
+    # ---- 8. kernel table ---------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts); the backward
     # kernels run on the training path only
@@ -2104,6 +2543,38 @@ def main() -> int:
             "library_ms": None,
             "torch_spelling_ms": fb_mean(f"{pre}_spelled_ms"),
             "torch_spelling_calls": SPELLED_CALLS[kind]})
+    # the hop kernels' numbers are launch-weighted over the ring's hop
+    # mix (per layer and direction: 4 diagonal, 6 past, 6 dead hops); a
+    # dead hop has no library call, so library_ms is weighted over the
+    # live (diagonal and past) hops only, and live_ms is the kernel's
+    # time over the same hops, to compare with it
+    n_mix = sum(HOP_MIX.values())
+    live = {hop: n for hop, n in HOP_MIX.items() if hop != "dead"}
+    for name, line, outs in (("flash_hop_fwd", 408, ("acc",)),
+                             ("flash_hop_bwd_dq", 454, ("dq",)),
+                             ("flash_hop_bwd_dkv", 494, ("dk", "dv"))):
+
+        def hop_mean(field, name=name, mix=HOP_MIX):
+            return sum(n * hop_timing[(name, hop)][field]
+                       for hop, n in mix.items()) / sum(mix.values())
+
+        by_ops = sum(n for hop, n in HOP_MIX.items()
+                     if hop_timing[(name, hop)]["bound_by"] == "operations")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distkeras_tpu_torch/csrc/flash_hop.cu",
+            "replaces": f"distkeras_tpu/ops/attention.py:{line}",
+            "launches": hop_counts[name],
+            "launches_by_path": {"seq_train": hop_counts[name]},
+            "max_abs_err": max(r[f"{o}_err"] for r in hop_rows for o in outs
+                               if r["dtype"] == "bfloat16"),
+            "ms": hop_mean("ms"), "plain_ms": hop_mean("plain_ms"),
+            "bound_ms": hop_mean("bound_ms"),
+            "bound_by": "operations" if 2 * by_ops >= n_mix else "bytes",
+            "library_ms": hop_mean("library_ms", mix=live),
+            "live_ms": hop_mean("ms", mix=live),
+            "library_over": "diagonal and past hops",
+            "by_hop": {hop: hop_timing[(name, hop)] for hop in HOP_MIX}})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -2122,7 +2593,10 @@ def main() -> int:
             "ps_train": ps, "fused_block_checks": fb_rows,
             "fused_block_timing": [{"kind": k[0], "key": list(k[1]), **v}
                                    for k, v in fb_timing.items()],
-            "fused_train": fused, "kernels": kernels}, indent=1))
+            "fused_train": fused, "hop_checks": hop_rows,
+            "hop_timing": [{"kernel": k[0], "hop": k[1], **v}
+                           for k, v in hop_timing.items()],
+            "seq_train": seq, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,595 @@
+// Ring-hop flash attention for Hopper (sm_90a), plain CUDA C++.
+//
+// Replaces the TPU kernels distkeras_tpu/ops/attention.py:_hop_fwd_kernel
+// (reached through flash_hop_fwd), _hop_dq_kernel and _hop_dkv_kernel
+// (through flash_hop_bwd).  One call is one hop of ring attention: the
+// resident q block of this rank against the visiting k/v block of rank
+// src.  Same functions, not block-by-block copies:
+//   q [B, H, Tq, D], k, v [B, H, Tk, D] in the input dtype (bf16 or f32);
+//   the causal mask compares GLOBAL positions, q_off + row >= k_off + col;
+//   hop_fwd_kernel: the online-softmax state m, l [B, H, Tq] and
+//     acc [B, H, Tq, D] (f32) is read in and written back in place,
+//     never finalized; f32 logits; P rounded to the input dtype before
+//     P.V while l sums the unrounded P, as the TPU kernel does;
+//   hop_dq_kernel, hop_dkv_kernel: this hop's partial dq, dk, dv from the
+//     FINAL lse and dsum = rowsum(dO.O) ([B, H, Tq] f32); ds rounded to
+//     the input dtype before ds.k and ds^T.q, p before p^T.do; the f32
+//     partial is written, or added to the carried f32 sum
+//     (accumulate = 1), which the ring carries from hop to hop.
+// The mask value is -1e30 and a masked p is exactly 0 in every kernel.
+// (The TPU forward does not zero it: a row whose first live tile holds
+// no key it may see, while m is still -1e30, would add exp(0) per
+// masked column there.  No ring hop makes such a row, since the
+// diagonal hop runs first and its first tile holds the row's own block
+// start, but the zero keeps the function right for any offsets.)
+// k tiles wholly above the diagonal in global positions are skipped, so a
+// hop from a later rank (all of it in the future) launches, reads
+// nothing and leaves the state as it was.
+//
+// Bound on the H100: a full (past) hop at the sequence-parallel path's
+// [4, 12, 2048, 64] bf16 does 4*B*H*Tq*Tk*D = 51.5 GFLOP forward (52 us
+// at 989 TFLOP/s) on 37.7 MB of q, k, v and 51.9 MB of state read and
+// written (27 us at 3.35 TB/s): the tensor cores bound it, as they bound
+// the backward's products.  A diagonal hop does half the work on the
+// same bytes, which then bound it, narrowly.
+//
+// Design: the tiling of flash_attention_fwd.cu and flash_attention_bwd.cu
+// with the offsets added.  256 threads per block, 64-row tiles staged in
+// shared memory as f32 with rows padded by one word; four threads own one
+// row of the resident tile and each scores 16 of the other operand's 64
+// columns; the row's four threads share a warp, so a __syncwarp orders
+// the P or ds tile they exchange through shared memory.
+//   hop_fwd_kernel: one block per (b, h, q tile); a loop over the k tiles
+//     up to the global diagonal; the state is loaded at the start and
+//     stored at the end.
+//   hop_dq_kernel: the same grid and loop; q and do resident.
+//   hop_dkv_kernel: one block per (b, h, k tile); k and v resident, a loop
+//     over the q tiles from the first one that reaches the tile.
+// No atomics: every output element has one owner, so runs are bit-equal.
+// The products run as FMAs on the CUDA cores, not on the tensor cores, so
+// this first version is bound by shared-memory reads and sits far from
+// the bound above; mma/wgmma tiles with TMA staging are the later step.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace flash_hop {
+
+constexpr int BM = 64;         // q rows per tile
+constexpr int BN = 64;         // k rows per tile
+constexpr int TPR = 4;         // threads per resident row
+constexpr int NTHREADS = 64 * TPR;
+constexpr float NEG = -1e30f;  // the TPU kernel's mask value
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and widened back: the TPU kernels' .astype(input dtype)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// rows [r0, r0 + 64) of a [Tn, D] slab into a padded f32 tile, zero past Tn
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int Tn, int tid) {
+  constexpr int LD = D + 1;
+  for (int i = tid; i < 64 * D; i += NTHREADS) {
+    const int rr = i / D, dd = i % D, g = r0 + rr;
+    dst[rr * LD + dd] = g < Tn ? to_f(src[(size_t)g * D + dd]) : 0.f;
+  }
+}
+
+// k tiles a q tile [q0, q0 + 64) of Tq rows may see: all of them, or, when
+// causal, those up to its last row's global position (0 for a dead tile)
+__device__ __forceinline__ int live_k_tiles(int q0, int Tq, int Tk,
+                                            int q_off, int k_off,
+                                            int causal) {
+  const int n = (Tk + BN - 1) / BN;
+  if (!causal) return n;
+  const int last = q_off + min(q0 + BM, Tq) - 1 - k_off;
+  return last < 0 ? 0 : min(n, last / BN + 1);
+}
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (3 * 64 * (D + 1) + BM * (BN + 1));
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (4 * 64 * (D + 1) + BM * (BN + 1));
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BN * (BM + 1) + 2 * BM);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+hop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, float* __restrict__ m,
+               float* __restrict__ l, float* __restrict__ acc, int H,
+               int Tq, int Tk, int q_off, int k_off, float scale,
+               int causal) {
+  constexpr int LD = D + 1;
+  constexpr int LDP = BN + 1;
+  constexpr int DPT = D / TPR;   // output columns per thread
+  constexpr int NPT = BN / TPR;  // score columns per thread
+  extern __shared__ float smem[];
+  float* qs = smem;              // [BM][LD]
+  float* ks = qs + BM * LD;      // [BN][LD]
+  float* vs = ks + BN * LD;      // [BN][LD]
+  float* ps = vs + BN * LD;      // [BM][LDP]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const size_t qbase = bh * (size_t)Tq * D;
+  const size_t kbase = bh * (size_t)Tk * D;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = live_k_tiles(q0, Tq, Tk, q_off, k_off, causal);
+  if (n_tiles == 0) return;  // a dead tile: the state stays as it was
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, sub = tid % TPR;
+  const int row = q0 + r;
+  const bool live_row = row < Tq;
+
+  load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
+  float mi = live_row ? m[bh * Tq + row] : NEG;
+  float li = live_row ? l[bh * Tq + row] : 0.f;
+  float a[DPT];
+  float* arow = acc + qbase + (size_t)row * D + sub;
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) a[i] = live_row ? arow[TPR * i] : 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
+    load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
+    __syncthreads();
+
+    float s[NPT];
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) s[c] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      float qr[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[e] = qs[r * LD + d0 + e];
+#pragma unroll
+      for (int c = 0; c < NPT; ++c) {
+        const float* kr = ks + (sub + TPR * c) * LD + d0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[c] = fmaf(qr[e], kr[e], s[c]);
+      }
+    }
+
+    bool masked[NPT];
+    float mt = NEG;
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) {
+      const int col = k0 + sub + TPR * c;
+      masked[c] = col >= Tk || (causal && k_off + col > q_off + row);
+      s[c] = masked[c] ? NEG : s[c] * scale;
+      mt = fmaxf(mt, s[c]);
+    }
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(mi, mt);
+    const float corr = expf(mi - m_new);
+    float ls = 0.f;
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) {
+      const float p = masked[c] ? 0.f : expf(s[c] - m_new);
+      ls += p;
+      ps[r * LDP + sub + TPR * c] = round_to<T>(p);
+    }
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    li = li * corr + ls;
+    mi = m_new;
+    __syncwarp();
+
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) a[i] *= corr;
+#pragma unroll 4
+    for (int c = 0; c < BN; ++c) {
+      const float p = ps[r * LDP + c];
+      const float* vr = vs + c * LD + sub;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) a[i] = fmaf(p, vr[TPR * i], a[i]);
+    }
+  }
+
+  if (live_row) {
+    if (sub == 0) {
+      m[bh * Tq + row] = mi;
+      l[bh * Tq + row] = li;
+    }
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) arow[TPR * i] = a[i];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+hop_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dsum,
+              float* __restrict__ dq, int H, int Tq, int Tk, int q_off,
+              int k_off, float scale, int causal, int accumulate) {
+  constexpr int LD = D + 1;
+  constexpr int LDS = BN + 1;
+  constexpr int DPT = D / TPR;   // dq columns per thread
+  constexpr int NPT = BN / TPR;  // score columns per thread
+  extern __shared__ float smem[];
+  float* qs = smem;              // [BM][LD]
+  float* dos = qs + BM * LD;     // [BM][LD]
+  float* ks = dos + BM * LD;     // [BN][LD]
+  float* vs = ks + BN * LD;      // [BN][LD]
+  float* dss = vs + BN * LD;     // [BM][LDS]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const size_t qbase = bh * (size_t)Tq * D;
+  const size_t kbase = bh * (size_t)Tk * D;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = live_k_tiles(q0, Tq, Tk, q_off, k_off, causal);
+  if (n_tiles == 0 && accumulate) return;  // adds nothing
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, sub = tid % TPR;
+  const int row = q0 + r;
+
+  float a[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) a[i] = 0.f;
+
+  if (n_tiles > 0) {
+    load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
+    load_tile<T, D>(dos, dout + qbase, q0, Tq, tid);
+  }
+  const float lse_r = row < Tq ? lse[bh * Tq + row] : 0.f;
+  const float dsum_r = row < Tq ? dsum[bh * Tq + row] : 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
+    load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
+    __syncthreads();
+
+    float s[NPT], dp[NPT];
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) s[c] = dp[c] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      float qr[8], dr[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qr[e] = qs[r * LD + d0 + e];
+        dr[e] = dos[r * LD + d0 + e];
+      }
+#pragma unroll
+      for (int c = 0; c < NPT; ++c) {
+        const float* kr = ks + (sub + TPR * c) * LD + d0;
+        const float* vr = vs + (sub + TPR * c) * LD + d0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          s[c] = fmaf(qr[e], kr[e], s[c]);
+          dp[c] = fmaf(dr[e], vr[e], dp[c]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) {
+      const int col = k0 + sub + TPR * c;
+      const bool masked = col >= Tk || row >= Tq ||
+                          (causal && k_off + col > q_off + row);
+      const float p = masked ? 0.f : expf(s[c] * scale - lse_r);
+      const float ds = p * (dp[c] - dsum_r) * scale;
+      dss[r * LDS + sub + TPR * c] = round_to<T>(ds);
+    }
+    __syncwarp();
+
+#pragma unroll 4
+    for (int c = 0; c < BN; ++c) {
+      const float d = dss[r * LDS + c];
+      const float* kr = ks + c * LD + sub;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) a[i] = fmaf(d, kr[TPR * i], a[i]);
+    }
+  }
+
+  if (row < Tq) {
+    float* o = dq + qbase + (size_t)row * D + sub;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i)
+      o[TPR * i] = accumulate ? o[TPR * i] + a[i] : a[i];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS)
+hop_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ dsum, float* __restrict__ dk,
+               float* __restrict__ dv, int H, int Tq, int Tk, int q_off,
+               int k_off, float scale, int causal, int accumulate) {
+  constexpr int LD = D + 1;
+  constexpr int LDP = BM + 1;
+  constexpr int DPT = D / TPR;   // dk and dv columns per thread
+  constexpr int NPT = BM / TPR;  // q rows scored per thread
+  extern __shared__ float smem[];
+  float* ks = smem;              // [BN][LD]
+  float* vs = ks + BN * LD;      // [BN][LD]
+  float* qs = vs + BN * LD;      // [BM][LD]
+  float* dos = qs + BM * LD;     // [BM][LD]
+  float* ps = dos + BM * LD;     // [BN][LDP], p^T in the input dtype
+  float* dss = ps + BN * LDP;    // [BN][LDP], ds^T in the input dtype
+  float* lse_s = dss + BN * LDP; // [BM]
+  float* dsum_s = lse_s + BM;    // [BM]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const size_t qbase = bh * (size_t)Tq * D;
+  const size_t kbase = bh * (size_t)Tk * D;
+  const int k0 = blockIdx.x * BN;
+  const int n_q = (Tq + BM - 1) / BM;
+  // the first q tile whose last row reaches this k tile's first row
+  int i0 = 0;
+  if (causal) {
+    const int x = k_off + k0 - q_off;
+    i0 = x > 0 ? min(n_q, x / BM) : 0;
+  }
+  if (i0 == n_q && accumulate) return;  // adds nothing
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, sub = tid % TPR;
+  const int krow = k0 + r;
+
+  if (i0 < n_q) {
+    load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
+    load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
+  }
+
+  float acc_k[DPT], acc_v[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int it = i0; it < n_q; ++it) {
+    const int q0 = it * BM;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
+    load_tile<T, D>(dos, dout + qbase, q0, Tq, tid);
+    if (tid < BM) {
+      const int g = q0 + tid;
+      lse_s[tid] = g < Tq ? lse[bh * Tq + g] : 0.f;
+      dsum_s[tid] = g < Tq ? dsum[bh * Tq + g] : 0.f;
+    }
+    __syncthreads();
+
+    float s[NPT], dp[NPT];
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) s[c] = dp[c] = 0.f;
+#pragma unroll 2
+    for (int d0 = 0; d0 < D; d0 += 8) {
+      float kr[8], vr[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kr[e] = ks[r * LD + d0 + e];
+        vr[e] = vs[r * LD + d0 + e];
+      }
+#pragma unroll
+      for (int c = 0; c < NPT; ++c) {
+        const float* qr = qs + (sub + TPR * c) * LD + d0;
+        const float* dr = dos + (sub + TPR * c) * LD + d0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          s[c] = fmaf(qr[e], kr[e], s[c]);
+          dp[c] = fmaf(dr[e], vr[e], dp[c]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < NPT; ++c) {
+      const int qi = sub + TPR * c, qrow = q0 + qi;
+      const bool masked = qrow >= Tq || krow >= Tk ||
+                          (causal && k_off + krow > q_off + qrow);
+      const float p = masked ? 0.f : expf(s[c] * scale - lse_s[qi]);
+      const float ds = p * (dp[c] - dsum_s[qi]) * scale;
+      ps[r * LDP + qi] = round_to<T>(p);
+      dss[r * LDP + qi] = round_to<T>(ds);
+    }
+    __syncwarp();
+
+#pragma unroll 4
+    for (int c = 0; c < BM; ++c) {
+      const float p = ps[r * LDP + c];
+      const float d = dss[r * LDP + c];
+      const float* dr = dos + c * LD + sub;
+      const float* qr = qs + c * LD + sub;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) {
+        acc_v[i] = fmaf(p, dr[TPR * i], acc_v[i]);
+        acc_k[i] = fmaf(d, qr[TPR * i], acc_k[i]);
+      }
+    }
+  }
+
+  if (krow < Tk) {
+    const size_t off = kbase + (size_t)krow * D + sub;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      const size_t o = off + TPR * i;
+      dk[o] = accumulate ? dk[o] + acc_k[i] : acc_k[i];
+      dv[o] = accumulate ? dv[o] + acc_v[i] : acc_v[i];
+    }
+  }
+}
+
+// Raise the kernel's dynamic shared-memory limit once per device (and so
+// outside any later CUDA-graph capture); setting the same value twice
+// from racing threads is benign.
+template <typename K>
+int configure(K kernel, size_t smem, bool* configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return -1;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  return 0;
+}
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, float* m,
+               float* l, float* acc, int B, int H, int Tq, int Tk,
+               int q_off, int k_off, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  static bool configured[64] = {};
+  int err = configure(hop_fwd_kernel<T, D>, smem, configured);
+  if (err != 0) return err;
+  dim3 grid((Tq + BM - 1) / BM, H, B);
+  hop_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), m, l, acc, H, Tq, Tk, q_off, k_off, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* dsum, float* dq, int B, int H,
+              int Tq, int Tk, int q_off, int k_off, float scale, int causal,
+              int accumulate, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static bool configured[64] = {};
+  int err = configure(hop_dq_kernel<T, D>, smem, configured);
+  if (err != 0) return err;
+  dim3 grid((Tq + BM - 1) / BM, H, B);
+  hop_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, dq,
+      H, Tq, Tk, q_off, k_off, scale, causal, accumulate);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* dsum,
+               float* dk, float* dv, int B, int H, int Tq, int Tk,
+               int q_off, int k_off, float scale, int causal,
+               int accumulate, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  static bool configured[64] = {};
+  int err = configure(hop_dkv_kernel<T, D>, smem, configured);
+  if (err != 0) return err;
+  dim3 grid((Tk + BN - 1) / BN, H, B);
+  hop_dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, dk,
+      dv, H, Tq, Tk, q_off, k_off, scale, causal, accumulate);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_hop
+
+using flash_hop::launch_dkv;
+using flash_hop::launch_dq;
+using flash_hop::launch_fwd;
+
+// dtype: 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError()
+// after its launch (0 on success); -1 for a head size or dtype not
+// built, or a device index past 63.
+extern "C" int flash_hop_fwd(const void* q, const void* k, const void* v,
+                             float* m, float* l, float* acc, int B, int H,
+                             int Tq, int Tk, int D, int q_off, int k_off,
+                             float scale, int causal, int dtype,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_fwd<float, 64>(q, k, v, m, l, acc, B, H, Tq, Tk, q_off,
+                                 k_off, scale, causal, s);
+  if (dtype == 0 && D == 128)
+    return launch_fwd<float, 128>(q, k, v, m, l, acc, B, H, Tq, Tk, q_off,
+                                  k_off, scale, causal, s);
+  if (dtype == 1 && D == 64)
+    return launch_fwd<__nv_bfloat16, 64>(q, k, v, m, l, acc, B, H, Tq, Tk,
+                                         q_off, k_off, scale, causal, s);
+  if (dtype == 1 && D == 128)
+    return launch_fwd<__nv_bfloat16, 128>(q, k, v, m, l, acc, B, H, Tq, Tk,
+                                          q_off, k_off, scale, causal, s);
+  return -1;
+}
+
+extern "C" int flash_hop_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* dsum, float* dq, int B, int H,
+                                int Tq, int Tk, int D, int q_off, int k_off,
+                                float scale, int causal, int accumulate,
+                                int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_dq<float, 64>(q, k, v, dout, lse, dsum, dq, B, H, Tq, Tk,
+                                q_off, k_off, scale, causal, accumulate, s);
+  if (dtype == 0 && D == 128)
+    return launch_dq<float, 128>(q, k, v, dout, lse, dsum, dq, B, H, Tq, Tk,
+                                 q_off, k_off, scale, causal, accumulate, s);
+  if (dtype == 1 && D == 64)
+    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, dsum, dq, B, H,
+                                        Tq, Tk, q_off, k_off, scale, causal,
+                                        accumulate, s);
+  if (dtype == 1 && D == 128)
+    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dsum, dq, B, H,
+                                         Tq, Tk, q_off, k_off, scale, causal,
+                                         accumulate, s);
+  return -1;
+}
+
+extern "C" int flash_hop_bwd_dkv(const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const float* lse, const float* dsum,
+                                 float* dk, float* dv, int B, int H, int Tq,
+                                 int Tk, int D, int q_off, int k_off,
+                                 float scale, int causal, int accumulate,
+                                 int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_dkv<float, 64>(q, k, v, dout, lse, dsum, dk, dv, B, H, Tq,
+                                 Tk, q_off, k_off, scale, causal, accumulate,
+                                 s);
+  if (dtype == 0 && D == 128)
+    return launch_dkv<float, 128>(q, k, v, dout, lse, dsum, dk, dv, B, H, Tq,
+                                  Tk, q_off, k_off, scale, causal,
+                                  accumulate, s);
+  if (dtype == 1 && D == 64)
+    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, dsum, dk, dv, B,
+                                         H, Tq, Tk, q_off, k_off, scale,
+                                         causal, accumulate, s);
+  if (dtype == 1 && D == 128)
+    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dsum, dk, dv,
+                                          B, H, Tq, Tk, q_off, k_off, scale,
+                                          causal, accumulate, s);
+  return -1;
+}

@@ -19,6 +19,7 @@ chunks) and runs on the same shape as the engine's prefill.
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional
 
 import torch
@@ -35,7 +36,10 @@ def _ceil_to(n: int, align: int) -> int:
 
 def _decode_model(model, device=None) -> TransformerLM:
     """A ``TransformerLM`` ready to serve: built from a config dict or
-    ``ModelSpec`` on ``device`` (default ``cuda``), or taken as given."""
+    ``ModelSpec`` on ``device`` (default ``cuda``), or taken as given.
+    A custom ``attn_fn`` and the ring (``seq_axis``) are cleared, as the
+    JAX package's ``generate`` clears them (their contracts are the
+    training path's shapes): a shallow copy shares the weights."""
     if isinstance(model, Mapping):
         model = ModelSpec.from_config(model).build(device=device)
     elif isinstance(model, ModelSpec):
@@ -44,6 +48,9 @@ def _decode_model(model, device=None) -> TransformerLM:
         raise TypeError(
             "generate() serves TransformerLM models; got "
             f"{type(model).__name__}")
+    if model.attn_fn is not None or model.seq_axis is not None:
+        model = copy.copy(model)
+        model.attn_fn = model.seq_axis = None
     return model
 
 

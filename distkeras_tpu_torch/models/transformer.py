@@ -1,6 +1,8 @@
 """Decoder-only Transformer LM, the port of
-``distkeras_tpu/models/transformer.py`` (dense and flash attention,
-GQA, the decode-mode KV cache, slot mode, ``cache_envelope``).
+``distkeras_tpu/models/transformer.py`` (dense, flash and blockwise
+attention, a custom ``attn_fn``, sequence parallelism over a ring
+(``seq_axis``), GQA, the decode-mode KV cache, slot mode,
+``cache_envelope``).
 
 Parameters are held in the compute dtype except the LayerNorm affines
 and ``lm_head``, which stay f32: flax casts its f32 parameters to the
@@ -27,8 +29,9 @@ from torch import nn
 
 from distkeras_tpu_torch.models.core import register_model
 from distkeras_tpu_torch.ops.attention import flash_attn_fn
+from distkeras_tpu_torch.parallel import ring_attention as _ring
 
-_ATTN_CHOICES = ("auto", "dense", "flash")
+_ATTN_CHOICES = ("auto", "dense", "blockwise", "flash")
 _NEG = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -230,7 +233,17 @@ class TransformerLM(nn.Module):
 
     ``attn``: ``"auto"`` picks flash wherever the JAX recipe picks a
     blocked spelling (T >= 1024, T % 128 == 0) and dense below;
-    ``"flash"``/``flash_attn=True`` and ``"dense"`` force one."""
+    ``"flash"``/``flash_attn=True``, ``"blockwise"``/``blockwise_attn=
+    True`` (q chunks of ``attn_q_chunk``, default 128) and ``"dense"``
+    force one; ``attn_fn`` overrides them all.
+
+    ``seq_axis`` names a ring (``parallel.ring_attention``): the forward
+    must run under ``sequence_sharded_apply(fn, ring, seq_axis)``.  Its
+    tokens are the ring's blocks held by this process (one rank's block
+    under a ``ProcessGroupRing``, the whole sequence under an
+    ``InProcessRing``); positions are global, and attention defaults to
+    ``ring_attn_fn(seq_axis, q_chunk=attn_q_chunk)``.  The parameters
+    are the dense model's."""
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 4,
                  d_model: int = 256, num_heads: int = 4,
@@ -246,13 +259,6 @@ class TransformerLM(nn.Module):
                  remat_blocks: bool = False, decode: bool = False,
                  cache_envelope: Optional[int] = None):
         super().__init__()
-        if attn_fn is not None:
-            raise _unsupported("attn_fn", "queue 1, LM training")
-        if seq_axis is not None:
-            raise _unsupported("seq_axis", "queue 1, sequence parallelism")
-        if blockwise_attn or attn == "blockwise":
-            raise _unsupported("blockwise_attn/attn='blockwise'",
-                               "queue 1, LM training")
         if num_experts > 0:
             raise _unsupported("num_experts>0", "queue 1, parallelism")
         if kv_cache_dtype is not None:
@@ -264,6 +270,21 @@ class TransformerLM(nn.Module):
             raise _unsupported("remat_blocks", "queue 1, LM training")
         if attn not in _ATTN_CHOICES:
             raise ValueError(f"attn={attn!r} not one of {_ATTN_CHOICES}")
+        if blockwise_attn and flash_attn:
+            raise ValueError(
+                "blockwise_attn and flash_attn are mutually exclusive "
+                "spellings of the device-local flash-style attention path")
+        if seq_axis is not None and (blockwise_attn or flash_attn
+                                     or attn != "auto"):
+            raise ValueError(
+                "blockwise_attn/flash_attn/attn are device-local "
+                "attention spellings; with seq_axis the attention is "
+                "ring attention over the ring: use attn_q_chunk to bound "
+                "its within-block chunks instead")
+        if decode and seq_axis is not None:
+            raise ValueError(
+                "decode=True is the KV-cache serving path: seq_axis does "
+                "not apply (generate() serves a seq_axis model without it)")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype={dtype!r} not one of {list(_DTYPES)}")
         if cache_envelope is not None and not decode:
@@ -279,6 +300,8 @@ class TransformerLM(nn.Module):
         self.max_len = max_len
         self.compute_dtype = _DTYPES[dtype]
         self.attn, self.flash_attn = attn, flash_attn
+        self.blockwise_attn, self.attn_fn = blockwise_attn, attn_fn
+        self.seq_axis, self.attn_q_chunk = seq_axis, attn_q_chunk
         self.num_kv_heads = num_kv_heads
         self.decode, self.cache_envelope = decode, cache_envelope
         cd = self.compute_dtype
@@ -349,10 +372,34 @@ class TransformerLM(nn.Module):
                        [zeros() for _ in self.blocks])
 
     def _local_attn_fn(self, t: int):
-        spelling = "flash" if self.flash_attn else self.attn
+        """The device-local attention for length ``t`` (None: dense).
+        Precedence: ``attn_fn`` > the boolean spellings > ``attn``."""
+        if self.attn_fn is not None:
+            return self.attn_fn
+        spelling = self.attn
+        if self.flash_attn:
+            spelling = "flash"
+        elif self.blockwise_attn:
+            spelling = "blockwise"
         if spelling == "auto":
             spelling = "dense" if t < 1024 or t % 128 else "flash"
-        return flash_attn_fn() if spelling == "flash" else None
+        if spelling == "flash":
+            return flash_attn_fn()
+        if spelling == "blockwise":
+            return _ring.blockwise_attn_fn(q_chunk=self.attn_q_chunk or 128)
+        return None
+
+    def _ring_positions(self, t: int, dev):
+        """Global positions of this process's ``t`` tokens on the ring
+        ``seq_axis`` names, and the ring's whole length."""
+        ring = _ring.resolve_ring(self.seq_axis)
+        held = len(ring.ranks)
+        if t % held:
+            raise ValueError(f"sequence length {t} does not split into the "
+                             f"{held} ranks held here")
+        block = t // held
+        positions = ring.ranks[0] * block + torch.arange(t, device=dev)
+        return positions[None], block * ring.size
 
     def forward(self, tokens, *, cache: Optional[KVCache] = None,
                 slot_pos=None, last_index: Optional[int] = None,
@@ -371,6 +418,10 @@ class TransformerLM(nn.Module):
         if t > self.max_len:
             raise ValueError(
                 f"sequence length {t} exceeds max_len={self.max_len}")
+        if decode and self.seq_axis is not None:
+            raise ValueError(
+                "decode is the KV-cache serving path: seq_axis does not "
+                "apply (generate() serves a seq_axis model without it)")
         if decode:
             if cache is None:
                 cache = self.new_cache(b)
@@ -390,8 +441,19 @@ class TransformerLM(nn.Module):
             # out-of-table positions clamp as a gather does; their
             # outputs are NaN-poisoned by the cache overflow check
             positions = positions.clamp(max=self.max_len - 1)
-            attn_fn = (self._local_attn_fn(t)
-                       if t > 1 and t % 128 == 0 else None)
+            # a custom attn_fn is honored as given (its caller owns its
+            # shape contract; generate() clears it)
+            attn_fn = (self._local_attn_fn(t) if t > 1 and (
+                self.attn_fn is not None or t % 128 == 0) else None)
+        elif self.seq_axis is not None:
+            positions, t_global = self._ring_positions(t, dev)
+            if t_global > self.max_len:
+                raise ValueError(f"ring sequence length {t_global} exceeds "
+                                 f"max_len={self.max_len}")
+            attn_fn = self.attn_fn
+            if attn_fn is None:
+                attn_fn = _ring.ring_attn_fn(self.seq_axis,
+                                             q_chunk=self.attn_q_chunk)
         else:
             positions = torch.arange(t, device=dev)[None]
             attn_fn = self._local_attn_fn(t)

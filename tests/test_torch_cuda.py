@@ -3,8 +3,10 @@
 against their plain versions, the serving path launching the forward
 kernel, a training step through the three flash kernels, a ResNet's
 gradients through the GroupNorm kernels against ``F.group_norm``,
-ADAG's rounds launching them, and the fused-block kernels against their
-plain versions, their launches per step and a deterministic fused step.
+ADAG's rounds launching them, the fused-block kernels against their
+plain versions, their launches per step and a deterministic fused step,
+and the ring-hop kernels against their plain versions and a
+sequence-parallel LM step through them.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -407,3 +409,120 @@ def test_fused_training_is_deterministic(card):
         state = TrainState.create(model, start, tx)
         runs.append([float(step(state, batch)[1]["loss"]) for _ in range(2)])
     assert runs[0] == runs[1]
+
+
+# ---- the ring-hop kernels (#3-#4) and the sequence-parallel path ----
+
+# (q_offset, k_offset, causal) of a 200-row q block against a 200-row k/v
+# block, offsets as a ring of 200-row blocks gives them: the diagonal hop
+# (first, from the initial state), a past block, a future block (dead),
+# and a past block without the causal mask
+HOP_CASES = {"diagonal": (200, 200, True), "past": (400, 0, True),
+             "dead": (0, 200, True), "full": (0, 400, False)}
+
+
+def _hop_counts():
+    return (attention.hop_fwd_launches, attention.hop_dq_launches,
+            attention.hop_dkv_launches)
+
+
+def _hop_inputs(dtype, d, hop, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    q, k, v, do = (randn(2, 4, 200, d, dtype=dtype) for _ in range(4))
+    if hop == "diagonal":
+        m = torch.full((2, 4, 200), -1e30, device="cuda")
+        l = torch.zeros(2, 4, 200, device="cuda")
+        acc = torch.zeros(2, 4, 200, d, device="cuda")
+    else:
+        m, l, acc = randn(2, 4, 200), randn(2, 4, 200).abs() + 0.5, \
+            randn(2, 4, 200, d)
+    return q, k, v, do, m, l, acc, randn(2, 4, 200) + 2, randn(2, 4, 200)
+
+
+@pytest.mark.parametrize("hop", sorted(HOP_CASES))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hop_kernels_match_plain(card, dtype, d, hop):
+    """The three hop kernels against their plain versions: the state m
+    to 1e-4 and l to 1e-4 of itself (f32 statistics), acc and the f32
+    partials dq, dk, dv per element as the flash backward's; a dead hop
+    passes the state and the carried sums bit for bit; a carried sum
+    takes the partial added to it, exactly."""
+    q, k, v, do, m, l, acc, lse, dsum = _hop_inputs(dtype, d, hop, d + 7)
+    qo, ko, causal = HOP_CASES[hop]
+    kw = dict(q_offset=qo, k_offset=ko, scale=d ** -0.5, causal=causal)
+    before = _hop_counts()
+    got = attention.flash_hop_fwd(q, k, v, m.clone(), l.clone(),
+                                  acc.clone(), **kw)
+    want = attention.flash_hop_fwd_reference(q, k, v, m, l, acc, **kw)
+    grads = attention.flash_hop_bwd(q, k, v, do, lse, dsum, **kw)
+    want_grads = (attention.flash_hop_bwd_dq_reference(
+        q, k, v, do, lse, dsum, **kw),
+        *attention.flash_hop_bwd_dkv_reference(q, k, v, do, lse, dsum, **kw))
+    carried = [torch.randn_like(g) for g in grads]
+    summed = attention.flash_hop_bwd(q, k, v, do, lse, dsum,
+                                     dq=carried[0].clone(),
+                                     dk=carried[1].clone(),
+                                     dv=carried[2].clone(), **kw)
+    torch.cuda.synchronize()
+    # one forward launch, two of each backward kernel
+    assert _hop_counts() == (before[0] + 1, before[1] + 2, before[2] + 2)
+    if hop == "dead":
+        for a, b in zip(got + grads, (m, l, acc) + want_grads):
+            assert torch.equal(a, b)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    assert ((got[1] - want[1]).abs() / want[1]).max().item() <= 1e-4
+    for name, a, b in zip(("acc", "dq", "dk", "dv"), (got[2],) + grads,
+                          (want[2],) + want_grads):
+        assert a.dtype == torch.float32
+        if b.abs().max() == 0:
+            assert torch.equal(a, b), name
+        else:
+            assert _ratio(a, b) <= TOL_GRAD[dtype], (name, _ratio(a, b))
+    for s, c, g in zip(summed, carried, grads):
+        assert torch.equal(s, c + g)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
+                                       ("bfloat16", 5e-2)])
+def test_ring_step_runs_the_hop_kernels(card, dtype, tol):
+    """A step of a sequence-parallel LM over ``InProcessRing(4)`` with
+    ``impl="flash"`` on the card: n^2 = 16 launches of each hop kernel
+    per layer, none of the device-local flash kernels, and every
+    parameter's gradient within ``tol`` (relative norm) of the
+    ``flash_attn=True`` step on the same weights (the key biases, whose
+    gradient is rounding noise, below 1e-3 of the whole)."""
+    from distkeras_tpu_torch.parallel import ring_attention as ring
+
+    cfg = dict(vocab_size=256, num_layers=2, d_model=128, num_heads=2,
+               max_len=512, dtype=dtype)
+    torch.manual_seed(0)
+    seq = build_model(model_config(
+        "transformer_lm", (512,), input_dtype="int32", seq_axis="seq",
+        attn_fn=ring.ring_attn_fn("seq", impl="flash"), **cfg))
+    flash = build_model(model_config("transformer_lm", (512,),
+                                     input_dtype="int32", flash_attn=True,
+                                     **cfg))
+    flash.load_state_dict(seq.state_dict())
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 512))).cuda()
+    y = torch.from_numpy(rng.integers(0, 256, (2, 512))).cuda()
+    before, flash_before = _hop_counts(), _counts()
+    got = ring.sequence_sharded_apply(
+        lambda _: _grads(seq, x, y), ring.InProcessRing(4), "seq")(None)
+    torch.cuda.synchronize()
+    assert _hop_counts() == tuple(c + 16 * 2 for c in before)
+    assert _counts() == flash_before
+    want = _grads(flash, x, y)
+    total = torch.stack([g.norm() for g in want.values()]).norm()
+    for name, g in got.items():
+        if name.endswith("attn.key.bias"):
+            for a in (g, want[name]):
+                assert a.norm().item() <= 1e-3 * total.item(), name
+            continue
+        scale = max(want[name].norm().item(), 1e-3 * total.item())
+        assert (g - want[name]).norm().item() <= tol * scale, name

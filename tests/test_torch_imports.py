@@ -46,7 +46,8 @@ def test_no_jax_imports(path):
 
 def test_import_loads_no_jax():
     code = ("import sys, distkeras_tpu_torch, distkeras_tpu_torch.convert, "
-            "distkeras_tpu_torch.ops.fused_block;"
+            "distkeras_tpu_torch.ops.fused_block, "
+            "distkeras_tpu_torch.parallel.ring_attention;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -2,7 +2,8 @@
 package's ``DecodeEngine`` on the same weights (f32): greedy tokens
 must be EQUAL per request over two buckets and mixed prompt lengths;
 ``steps_per_sync`` changes nothing; ``queue_bound`` sheds; ``close()``
-cancels; deadlines expire; keys the port does not support raise."""
+cancels; deadlines expire; keys the port does not support raise, and
+the training path's attention keys serve."""
 
 import jax
 import jax.numpy as jnp
@@ -133,12 +134,29 @@ def test_unsupported_engine_keys_raise(models, key, value):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("num_experts", 4), ("kv_cache_dtype", "int8"), ("seq_axis", "sp"),
-    ("scan_blocks", True), ("blockwise_attn", True), ("attn", "blockwise"),
-    ("attn_fn", lambda q, k, v, scale: q)])
+    ("num_experts", 4), ("kv_cache_dtype", "int8"), ("scan_blocks", True)])
 def test_unsupported_model_keys_raise(key, value):
     with pytest.raises(NotImplementedError, match=key.split("_")[0]):
         build_model(_cfg(**{key: value}), device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("seq_axis", "sp"), ("blockwise_attn", True), ("attn", "blockwise"),
+    ("attn_fn", lambda q, k, v, scale: q)])
+def test_training_path_model_keys_serve(models, key, value):
+    """Keys of the training path serve as the JAX engine serves them:
+    the ring (``seq_axis``) and a custom ``attn_fn`` are cleared for
+    decode, the blockwise spelling runs the prefill; tokens equal
+    ``generate()``'s on the same model."""
+    _, _, port = models
+    model = build_model(_cfg(flash_attn=False, **{key: value}),
+                        device="cpu").eval()
+    model.load_state_dict(port.state_dict())
+    reqs = _requests([40, 130], [5, 3], seed=3)
+    res = {r["i"]: r for r in DecodeEngine(model, slots=2).run(reqs)}
+    for req in reqs:
+        np.testing.assert_array_equal(res[req["i"]]["tokens"],
+                                      _want(model, req))
 
 
 def test_unsupported_submit_and_methods_raise(models):
