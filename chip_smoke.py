@@ -7,13 +7,16 @@ Phases, in order; any failure exits nonzero and prints no result:
 
 1. build every CUDA kernel of the serving, LM training, PS training,
    fused ResNet and sequence-parallel paths from ``csrc/`` (one ``nvcc``
-   per source, all started together) and print the card's name and
-   power limit;
+   per source, all started together), print the card's name and power
+   limit, and read each flash backward kernel's registers and spill
+   bytes per instantiation from the compiler's report;
 2. hold each kernel against its plain PyTorch version on the card at
-   the paths' shapes (and a few more), with the tolerances below, and
-   time kernel, plain version and the one PyTorch call that computes
-   the same function (``library_ms``, timed here and used nowhere in
-   the port);
+   the paths' shapes (and a few more: the flash backward also at
+   [8, 12, 1024, 128] bf16 causal, where its registers bind), with the
+   tolerances below, and time kernel, plain version and the one
+   PyTorch call that computes the same function (``library_ms``, timed
+   here and used nowhere in the port), with each backward kernel's
+   achieved TFLOP/s;
 3. serve 16 requests through ``DecodeEngine`` with the GPT-2-small
    shaped LM (L12, d768, 12 heads, 4 KV heads, vocab 32768, max_len
    2048, bf16, flash prefill) on seeded random weights mapped through
@@ -92,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -133,6 +137,10 @@ TRAIN = dict(loss="sparse_categorical_crossentropy", worker_optimizer="adam",
              learning_rate=3e-4, batch_size=8)
 TRAIN_ROWS, TRAIN_EPOCHS = 128, 2   # 16 steps per epoch
 BWD_SHAPE = (8, 12, 1024, 64)       # the training path's attention
+# the same at head size 128, where the bf16 backward kernels' registers
+# bind (two D-wide f32 accumulators in the dk/dv kernel): checked bf16
+# causal and timed beside the path's shape
+BWD_SHAPE_D128 = (8, 12, 1024, 128)
 
 
 def _card_line() -> str:
@@ -141,6 +149,53 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def _ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each function in an ``nvcc -Xptxas
+    -v`` report: ``{mangled name: {"registers": n, "spill_stores": n,
+    "spill_loads": n}}``."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _kernel_resources(text: str, kernel: str) -> dict:
+    """The ptxas report of each instantiation of the kernel template
+    named ``kernel`` (unqualified), keyed ``bf16_d64``, ``f32_d128``..."""
+    pat = re.compile(rf"{len(kernel)}{kernel}I(13__nv_bfloat16|f)Li(\d+)E")
+    res = {}
+    for name, info in _ptxas_report(text).items():
+        m = pat.search(name)
+        if m:
+            dtype = "f32" if m.group(1) == "f" else "bf16"
+            res[f"{dtype}_d{m.group(2)}"] = info
+    return dict(sorted(res.items()))
+
+
+# kernel table name -> (library, kernel template) of the ptxas report
+# written beside the kernels' entries
+PTXAS_ROWS = {"flash_attention_bwd_dq": ("flash_attention_bwd", "dq_kernel"),
+              "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                          "dkv_kernel"),
+              "flash_hop_bwd_dq": ("flash_hop", "hop_dq_kernel"),
+              "flash_hop_bwd_dkv": ("flash_hop", "hop_dkv_kernel")}
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -201,6 +256,17 @@ def _attn_bound(b, h, t, d, dtype, causal):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _bwd_flops(b, h, t, d, causal, products):
+    """Operations of ``products`` T x T x D products per head; causal
+    work counts the causal half."""
+    return 2 * products * b * h * t * t * d * (0.5 if causal else 1.0)
+
+
+def _tflops(flops, ms):
+    """Achieved TFLOP/s of ``flops`` operations in ``ms``."""
+    return flops / (ms * 1e-3) / 1e12 if ms > 0 else 0.0
+
+
 def _bwd_bound(b, h, t, d, dtype, causal, products, outputs):
     """Least time (ms) and what bounds it for a backward function that
     does ``products`` T x T x D products per head and writes
@@ -208,7 +274,7 @@ def _bwd_bound(b, h, t, d, dtype, causal, products, outputs):
     dsum read once, the outputs written once; causal work counts the
     causal half."""
     item = 2 if dtype == "bfloat16" else 4
-    flops = 2 * products * b * h * t * t * d * (0.5 if causal else 1.0)
+    flops = _bwd_flops(b, h, t, d, causal, products)
     nbytes = (4 + outputs) * b * h * t * d * item + 2 * b * h * t * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -231,46 +297,45 @@ def _bwd_case(attention, torch, gen, shape, dtype, causal):
     return q, k, v, do, lse, dsum, scale
 
 
-def _check_attention_bwd(attention, torch, shapes):
-    """Backward kernels vs their plain versions on the card."""
+def _check_attention_bwd(attention, torch, shapes, extra=()):
+    """Backward kernels vs their plain versions on the card: every shape
+    in bf16 and f32, causal or not, then the ``extra`` (shape, dtype,
+    causal) cases."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for shape in shapes:
-        for dname in ("bfloat16", "float32"):
-            for causal in (True, False):
-                q, k, v, do, lse, dsum, scale = _bwd_case(
-                    attention, torch, gen, shape, getattr(torch, dname),
-                    causal)
-                kw = dict(scale=scale, causal=causal)
-                got = (attention.flash_attention_bwd_dq(
-                    q, k, v, do, lse, dsum, **kw),
-                    *attention.flash_attention_bwd_dkv(
-                        q, k, v, do, lse, dsum, **kw))
-                want = (attention.flash_attention_bwd_dq_reference(
-                    q, k, v, do, lse, dsum, **kw),
-                    *attention.flash_attention_bwd_dkv_reference(
-                        q, k, v, do, lse, dsum, **kw))
-                torch.cuda.synchronize()
-                row = {"shape": list(shape), "dtype": dname,
-                       "causal": causal}
-                ok = True
-                for name, a, w in zip(("dq", "dk", "dv"), got, want):
-                    a, w = a.float(), w.float()
-                    diff = (a - w).abs()
-                    rms = w.square().mean().sqrt()
-                    ratio = (diff / (w.abs() + rms)).max().item()
-                    row[f"{name}_err"] = diff.max().item()
-                    row[f"{name}_rms"] = rms.item()
-                    row[f"{name}_ratio"] = ratio
-                    ok = (ok and ratio <= TOL_GRAD[dname]
-                          and bool(torch.isfinite(a).all()))
-                row["ok"] = ok
-                print(f"attention_bwd {row}")
-                if not ok:
-                    raise SystemExit(
-                        f"flash_attention_bwd disagrees with its plain "
-                        f"version: {row}")
-                rows.append(row)
+    cases = [(shape, dname, causal) for shape in shapes
+             for dname in ("bfloat16", "float32")
+             for causal in (True, False)] + list(extra)
+    for shape, dname, causal in cases:
+        q, k, v, do, lse, dsum, scale = _bwd_case(
+            attention, torch, gen, shape, getattr(torch, dname), causal)
+        kw = dict(scale=scale, causal=causal)
+        got = (attention.flash_attention_bwd_dq(q, k, v, do, lse, dsum, **kw),
+               *attention.flash_attention_bwd_dkv(q, k, v, do, lse, dsum,
+                                                  **kw))
+        want = (attention.flash_attention_bwd_dq_reference(
+            q, k, v, do, lse, dsum, **kw),
+            *attention.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, dsum, **kw))
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "dtype": dname, "causal": causal}
+        ok = True
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            a, w = a.float(), w.float()
+            diff = (a - w).abs()
+            rms = w.square().mean().sqrt()
+            ratio = (diff / (w.abs() + rms)).max().item()
+            row[f"{name}_err"] = diff.max().item()
+            row[f"{name}_rms"] = rms.item()
+            row[f"{name}_ratio"] = ratio
+            ok = (ok and ratio <= TOL_GRAD[dname]
+                  and bool(torch.isfinite(a).all()))
+        row["ok"] = ok
+        print(f"attention_bwd {row}")
+        if not ok:
+            raise SystemExit(f"flash_attention_bwd disagrees with its plain "
+                             f"version: {row}")
+        rows.append(row)
     return rows
 
 
@@ -296,11 +361,14 @@ def _time_attention_bwd(attention, torch, F, shape):
         ms = _time_ms(lambda: kernel(q, k, v, do, lse, dsum, **kw), 10)
         plain_ms = _time_ms(lambda: plain(q, k, v, do, lse, dsum, **kw), 3)
         bound, by = _bwd_bound(*shape, "bfloat16", True, *BWD_WORK[name])
+        tflops = _tflops(_bwd_flops(*shape, True, BWD_WORK[name][0]), ms)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library,
-                     "bound_ms": bound, "bound_by": by}
+                     "bound_ms": bound, "bound_by": by, "tflops": tflops}
         print(f"timing {name} {list(shape)} bf16 causal: kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, sdpa backward {library:.4f} "
-              f"ms, bound {bound:.5f} ms ({by})")
+              f"ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+              f"backward {library:.4f} ms "
+              f"({_tflops(_bwd_flops(*shape, True, 5), library):.1f} "
+              f"TFLOP/s), bound {bound:.5f} ms ({by})")
     whole, by = _bwd_bound(*shape, "bfloat16", True, 5, 3)
     print(f"timing flash backward as a whole {list(shape)}: dq + dkv "
           f"{out['flash_attention_bwd_dq']['ms'] + out['flash_attention_bwd_dkv']['ms']:.4f}"
@@ -1987,6 +2055,17 @@ def _check_hops(attention, torch):
     return rows
 
 
+def _hop_flops(kernel, shape, hop):
+    """Operations of one hop of ``kernel``: its products (2 forward, 3
+    for dq, 4 for dk/dv) over the pairs the mask leaves."""
+    b, h, t, d = shape
+    pairs = {"diagonal": t * (t + 1) / 2, "past": t * t, "full": t * t,
+             "dead": 0}[hop]
+    products = {"flash_hop_fwd": 2, "flash_hop_bwd_dq": 3,
+                "flash_hop_bwd_dkv": 4}[kernel]
+    return 2 * products * b * h * pairs * d
+
+
 def _hop_bound(kernel, shape, hop):
     """Least time (ms) and what bounds it for one hop of ``kernel`` at
     bf16: its products over the pairs the mask leaves (the kernels'
@@ -1995,14 +2074,12 @@ def _hop_bound(kernel, shape, hop):
     (and do, lse, dsum) read, the f32 state or carried sums read and
     written.  A dead hop has nothing to do: 0."""
     b, h, t, d = shape
-    pairs = {"diagonal": t * (t + 1) / 2, "past": t * t, "full": t * t,
-             "dead": 0}[hop]
-    if not pairs:
+    flops = _hop_flops(kernel, shape, hop)
+    if not flops:
         return 0.0, "bytes"
-    products, tensors, state = {"flash_hop_fwd": (2, 3, 2 * d + 4),
-                                "flash_hop_bwd_dq": (3, 4, 2 * d),
-                                "flash_hop_bwd_dkv": (4, 4, 4 * d)}[kernel]
-    flops = 2 * products * b * h * pairs * d
+    tensors, state = {"flash_hop_fwd": (3, 2 * d + 4),
+                      "flash_hop_bwd_dq": (4, 2 * d),
+                      "flash_hop_bwd_dkv": (4, 4 * d)}[kernel]
     nbytes = (tensors * b * h * t * d * 2 + b * h * t * state * 4
               + (2 * b * h * t * 4 if kernel != "flash_hop_fwd" else 0))
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES
@@ -2056,9 +2133,12 @@ def _time_hops(attention, torch):
                    "bound_by": by,
                    "library_ms": lib["fwd" if name == "flash_hop_fwd"
                                      else "bwd"]}
+            row["tflops"] = _tflops(_hop_flops(name, HOP_SHAPE, hop),
+                                    row["ms"])
             out[(name, hop)] = row
             print(f"timing {name} {list(HOP_SHAPE)} bf16 {hop}: kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), "
+                  f"plain {row['plain_ms']:.4f} ms, "
                   f"sdpa flash {row['library_ms']} ms, bound "
                   f"{bound:.5f} ms ({by})")
     return out
@@ -2304,6 +2384,11 @@ def main() -> int:
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    ptxas = {row: _kernel_resources(libs[lib].with_suffix(".log").read_text(),
+                                    kernel)
+             for row, (lib, kernel) in PTXAS_ROWS.items()}
+    for row, res in ptxas.items():
+        print(f"ptxas {row}: {res}")
     card = _card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2340,9 +2425,13 @@ def main() -> int:
     timing = _time_attention(attention, torch, F, sorted(fwd_mix))
     bwd_rows = _check_attention_bwd(
         attention, torch,
-        [BWD_SHAPE, (1, 12, 128, 64), (8, 12, 512, 64), (2, 4, 200, 128)])
+        [BWD_SHAPE, (1, 12, 128, 64), (8, 12, 512, 64), (2, 4, 200, 128)],
+        extra=[(BWD_SHAPE_D128, "bfloat16", True)])
     bwd_timing, bwd_whole = _time_attention_bwd(attention, torch, F,
                                                 BWD_SHAPE)
+    bwd_timing_d128, _ = _time_attention_bwd(attention, torch, F,
+                                             BWD_SHAPE_D128)
+    torch.cuda.empty_cache()
 
     # ---- 3. serving path --------------------------------------------
     cfg = model_config("transformer_lm", (LM["max_len"],),
@@ -2487,7 +2576,8 @@ def main() -> int:
             "source": "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": replaces, "launches": train_counts[name],
             "launches_by_path": by_path[name], "max_abs_err": err,
-            **bwd_timing[name]})
+            **bwd_timing[name], "d128": bwd_timing_d128[name],
+            "ptxas": ptxas[name]})
     # the GroupNorm kernels' numbers are launch-weighted over the PS
     # path's (shape, ReLU) mix
     gn_total = sum(gn_mix.values())
@@ -2573,7 +2663,12 @@ def main() -> int:
             "bound_by": "operations" if 2 * by_ops >= n_mix else "bytes",
             "library_ms": hop_mean("library_ms", mix=live),
             "live_ms": hop_mean("ms", mix=live),
+            "live_tflops": _tflops(
+                sum(n * _hop_flops(name, HOP_SHAPE, hop)
+                    for hop, n in live.items()) / sum(live.values()),
+                hop_mean("ms", mix=live)),
             "library_over": "diagonal and past hops",
+            **({"ptxas": ptxas[name]} if name in ptxas else {}),
             "by_hop": {hop: hop_timing[(name, hop)] for hop in HOP_MIX}})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2583,6 +2678,8 @@ def main() -> int:
                         **timing[s]} for s in sorted(fwd_mix)],
             "bwd_timing": {**bwd_timing, "whole_backward": bwd_whole,
                            "shape": list(BWD_SHAPE)},
+            "bwd_timing_d128": {**bwd_timing_d128,
+                                "shape": list(BWD_SHAPE_D128)},
             "serve": {"requests": len(results), "tokens": n_tok,
                       "wall_s": wall, "tokens_per_s": n_tok / wall,
                       "ttft_p50_s": ttft[0], "ttft_p95_s": ttft[1]},

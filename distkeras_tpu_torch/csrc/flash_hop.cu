@@ -33,25 +33,41 @@
 // the backward's products.  A diagonal hop does half the work on the
 // same bytes, which then bound it, narrowly.
 //
-// Design: the tiling of flash_attention_fwd.cu and flash_attention_bwd.cu
-// with the offsets added.  256 threads per block, 64-row tiles staged in
-// shared memory as f32 with rows padded by one word; four threads own one
-// row of the resident tile and each scores 16 of the other operand's 64
-// columns; the row's four threads share a warp, so a __syncwarp orders
-// the P or ds tile they exchange through shared memory.
+// Bound of the backward: at that shape a past hop's dq kernel does 3
+// Tq x Tk x D products (q.k^T, do.v^T, ds.k; 77.3 GFLOP, 78 us) on 101 MB
+// of bf16 blocks, f32 rows and the carried f32 dq read and written (30
+// us); the dk/dv kernel 4 (103.1 GFLOP, 104 us) on 152 MB (45 us): the
+// tensor cores bound both, and a diagonal hop does half the products.
+//
+// Forward, and the f32 backward: the tiling of flash_attention_fwd.cu and
+// flash_attention_bwd.cu's f32 kernels with the offsets added.  256
+// threads per block, 64-row tiles staged in shared memory as f32 with rows
+// padded by one word; four threads own one row of the resident tile and
+// each scores 16 of the other operand's 64 columns; the row's four threads
+// share a warp, so a __syncwarp orders the P or ds tile they exchange
+// through shared memory.  The products run as FMAs on the CUDA cores,
+// bound by shared-memory reads.
 //   hop_fwd_kernel: one block per (b, h, q tile); a loop over the k tiles
 //     up to the global diagonal; the state is loaded at the start and
 //     stored at the end.
 //   hop_dq_kernel: the same grid and loop; q and do resident.
 //   hop_dkv_kernel: one block per (b, h, k tile); k and v resident, a loop
 //     over the q tiles from the first one that reaches the tile.
+// The bf16 backward (the path's dtype) runs on the tensor cores instead:
+// the same grids and loops through the mma.sync tile bodies of
+// flash_bwd_mma.cuh (128 threads, 4 warps of 16 resident rows, bf16
+// operands in padded shared memory by 16-byte cp.async, streamed tiles
+// double buffered, p and ds repacked in registers), taking the masking
+// inputs (Tq, Tk, q_off, k_off, causal) as they are.  Its f32 partials
+// are written, or added to the carried sums with one __fadd_rn each.
 // No atomics: every output element has one owner, so runs are bit-equal.
-// The products run as FMAs on the CUDA cores, not on the tensor cores, so
-// this first version is bound by shared-memory reads and sits far from
-// the bound above; mma/wgmma tiles with TMA staging are the later step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "flash_bwd_mma.cuh"
 
 namespace flash_hop {
 
@@ -60,6 +76,18 @@ constexpr int BN = 64;         // k rows per tile
 constexpr int TPR = 4;         // threads per resident row
 constexpr int NTHREADS = 64 * TPR;
 constexpr float NEG = -1e30f;  // the TPU kernel's mask value
+
+template <typename T>
+__host__ __device__ constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// threads per backward block: the mma tiles' 4 warps, or the FMA tiles'
+template <typename T>
+struct BwdThreads {
+  static constexpr int value =
+      on_tensor_cores<T>() ? flash_bwd_mma::NTHREADS : NTHREADS;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -101,6 +129,14 @@ __device__ __forceinline__ int live_k_tiles(int q0, int Tq, int Tk,
   if (!causal) return n;
   const int last = q_off + min(q0 + BM, Tq) - 1 - k_off;
   return last < 0 ? 0 : min(n, last / BN + 1);
+}
+
+// one pair of f32 outputs: written, or added to the carried sum with one
+// round-to-nearest add each
+__device__ __forceinline__ void put(float* x, float a0, float a1,
+                                    int accumulate) {
+  x[0] = accumulate ? __fadd_rn(x[0], a0) : a0;
+  x[1] = accumulate ? __fadd_rn(x[1], a1) : a1;
 }
 
 template <int D>
@@ -226,23 +262,13 @@ hop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(BwdThreads<T>::value)
 hop_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dsum,
               float* __restrict__ dq, int H, int Tq, int Tk, int q_off,
               int k_off, float scale, int causal, int accumulate) {
-  constexpr int LD = D + 1;
-  constexpr int LDS = BN + 1;
-  constexpr int DPT = D / TPR;   // dq columns per thread
-  constexpr int NPT = BN / TPR;  // score columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;              // [BM][LD]
-  float* dos = qs + BM * LD;     // [BM][LD]
-  float* ks = dos + BM * LD;     // [BN][LD]
-  float* vs = ks + BN * LD;      // [BN][LD]
-  float* dss = vs + BN * LD;     // [BM][LDS]
-
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
   const size_t qbase = bh * (size_t)Tq * D;
@@ -250,101 +276,112 @@ hop_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BM;
   const int n_tiles = live_k_tiles(q0, Tq, Tk, q_off, k_off, causal);
   if (n_tiles == 0 && accumulate) return;  // adds nothing
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, sub = tid % TPR;
-  const int row = q0 + r;
 
-  float a[DPT];
+  if constexpr (on_tensor_cores<T>()) {
+    float acc[D / 8][4];
+    flash_bwd_mma::dq_tile<D>(q + qbase, k + kbase, v + kbase, dout + qbase,
+                              lse + bh * Tq, dsum + bh * Tq, q0, Tq, Tk,
+                              q_off, k_off, n_tiles, scale, causal, acc,
+                              smem);
+    float* o = dq + qbase;
+    flash_bwd_mma::for_each_pair<D>(
+        acc, q0, [&](int row, int col, float a0, float a1) {
+          if (row < Tq) put(o + (size_t)row * D + col, a0, a1, accumulate);
+        });
+  } else {
+    constexpr int LD = D + 1;
+    constexpr int LDS = BN + 1;
+    constexpr int DPT = D / TPR;   // dq columns per thread
+    constexpr int NPT = BN / TPR;  // score columns per thread
+    float* qs = smem;              // [BM][LD]
+    float* dos = qs + BM * LD;     // [BM][LD]
+    float* ks = dos + BM * LD;     // [BN][LD]
+    float* vs = ks + BN * LD;      // [BN][LD]
+    float* dss = vs + BN * LD;     // [BM][LDS]
+
+    const int tid = threadIdx.x;
+    const int r = tid / TPR, sub = tid % TPR;
+    const int row = q0 + r;
+
+    float a[DPT];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) a[i] = 0.f;
+    for (int i = 0; i < DPT; ++i) a[i] = 0.f;
 
-  if (n_tiles > 0) {
-    load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
-    load_tile<T, D>(dos, dout + qbase, q0, Tq, tid);
-  }
-  const float lse_r = row < Tq ? lse[bh * Tq + row] : 0.f;
-  const float dsum_r = row < Tq ? dsum[bh * Tq + row] : 0.f;
+    if (n_tiles > 0) {
+      load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
+      load_tile<T, D>(dos, dout + qbase, q0, Tq, tid);
+    }
+    const float lse_r = row < Tq ? lse[bh * Tq + row] : 0.f;
+    const float dsum_r = row < Tq ? dsum[bh * Tq + row] : 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
-    load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
-    __syncthreads();
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = j * BN;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
+      load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
+      __syncthreads();
 
-    float s[NPT], dp[NPT];
+      float s[NPT], dp[NPT];
 #pragma unroll
-    for (int c = 0; c < NPT; ++c) s[c] = dp[c] = 0.f;
+      for (int c = 0; c < NPT; ++c) s[c] = dp[c] = 0.f;
 #pragma unroll 2
-    for (int d0 = 0; d0 < D; d0 += 8) {
-      float qr[8], dr[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        qr[e] = qs[r * LD + d0 + e];
-        dr[e] = dos[r * LD + d0 + e];
-      }
-#pragma unroll
-      for (int c = 0; c < NPT; ++c) {
-        const float* kr = ks + (sub + TPR * c) * LD + d0;
-        const float* vr = vs + (sub + TPR * c) * LD + d0;
+      for (int d0 = 0; d0 < D; d0 += 8) {
+        float qr[8], dr[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          s[c] = fmaf(qr[e], kr[e], s[c]);
-          dp[c] = fmaf(dr[e], vr[e], dp[c]);
+          qr[e] = qs[r * LD + d0 + e];
+          dr[e] = dos[r * LD + d0 + e];
         }
+#pragma unroll
+        for (int c = 0; c < NPT; ++c) {
+          const float* kr = ks + (sub + TPR * c) * LD + d0;
+          const float* vr = vs + (sub + TPR * c) * LD + d0;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            s[c] = fmaf(qr[e], kr[e], s[c]);
+            dp[c] = fmaf(dr[e], vr[e], dp[c]);
+          }
+        }
+      }
+
+#pragma unroll
+      for (int c = 0; c < NPT; ++c) {
+        const int col = k0 + sub + TPR * c;
+        const bool masked = col >= Tk || row >= Tq ||
+                            (causal && k_off + col > q_off + row);
+        const float p = masked ? 0.f : expf(s[c] * scale - lse_r);
+        const float ds = p * (dp[c] - dsum_r) * scale;
+        dss[r * LDS + sub + TPR * c] = round_to<T>(ds);
+      }
+      __syncwarp();
+
+#pragma unroll 4
+      for (int c = 0; c < BN; ++c) {
+        const float d = dss[r * LDS + c];
+        const float* kr = ks + c * LD + sub;
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) a[i] = fmaf(d, kr[TPR * i], a[i]);
       }
     }
 
+    if (row < Tq) {
+      float* o = dq + qbase + (size_t)row * D + sub;
 #pragma unroll
-    for (int c = 0; c < NPT; ++c) {
-      const int col = k0 + sub + TPR * c;
-      const bool masked = col >= Tk || row >= Tq ||
-                          (causal && k_off + col > q_off + row);
-      const float p = masked ? 0.f : expf(s[c] * scale - lse_r);
-      const float ds = p * (dp[c] - dsum_r) * scale;
-      dss[r * LDS + sub + TPR * c] = round_to<T>(ds);
+      for (int i = 0; i < DPT; ++i)
+        o[TPR * i] = accumulate ? o[TPR * i] + a[i] : a[i];
     }
-    __syncwarp();
-
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      const float d = dss[r * LDS + c];
-      const float* kr = ks + c * LD + sub;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) a[i] = fmaf(d, kr[TPR * i], a[i]);
-    }
-  }
-
-  if (row < Tq) {
-    float* o = dq + qbase + (size_t)row * D + sub;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      o[TPR * i] = accumulate ? o[TPR * i] + a[i] : a[i];
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(BwdThreads<T>::value)
 hop_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse,
                const float* __restrict__ dsum, float* __restrict__ dk,
                float* __restrict__ dv, int H, int Tq, int Tk, int q_off,
                int k_off, float scale, int causal, int accumulate) {
-  constexpr int LD = D + 1;
-  constexpr int LDP = BM + 1;
-  constexpr int DPT = D / TPR;   // dk and dv columns per thread
-  constexpr int NPT = BM / TPR;  // q rows scored per thread
   extern __shared__ float smem[];
-  float* ks = smem;              // [BN][LD]
-  float* vs = ks + BN * LD;      // [BN][LD]
-  float* qs = vs + BN * LD;      // [BM][LD]
-  float* dos = qs + BM * LD;     // [BM][LD]
-  float* ps = dos + BM * LD;     // [BN][LDP], p^T in the input dtype
-  float* dss = ps + BN * LDP;    // [BN][LDP], ds^T in the input dtype
-  float* lse_s = dss + BN * LDP; // [BM]
-  float* dsum_s = lse_s + BM;    // [BM]
-
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
   const size_t qbase = bh * (size_t)Tq * D;
@@ -358,96 +395,130 @@ hop_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     i0 = x > 0 ? min(n_q, x / BM) : 0;
   }
   if (i0 == n_q && accumulate) return;  // adds nothing
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, sub = tid % TPR;
-  const int krow = k0 + r;
 
-  if (i0 < n_q) {
-    load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
-    load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
-  }
+  if constexpr (on_tensor_cores<T>()) {
+    float acc_k[D / 8][4], acc_v[D / 8][4];
+    flash_bwd_mma::dkv_tile<D>(q + qbase, k + kbase, v + kbase,
+                               dout + qbase, lse + bh * Tq, dsum + bh * Tq,
+                               k0, Tq, Tk, q_off, k_off, i0, n_q, scale,
+                               causal, acc_k, acc_v, smem);
+    float* ok = dk + kbase;
+    float* ov = dv + kbase;
+    flash_bwd_mma::for_each_pair<D>(
+        acc_k, k0, [&](int row, int col, float a0, float a1) {
+          if (row < Tk) put(ok + (size_t)row * D + col, a0, a1, accumulate);
+        });
+    flash_bwd_mma::for_each_pair<D>(
+        acc_v, k0, [&](int row, int col, float a0, float a1) {
+          if (row < Tk) put(ov + (size_t)row * D + col, a0, a1, accumulate);
+        });
+  } else {
+    constexpr int LD = D + 1;
+    constexpr int LDP = BM + 1;
+    constexpr int DPT = D / TPR;   // dk and dv columns per thread
+    constexpr int NPT = BM / TPR;  // q rows scored per thread
+    float* ks = smem;              // [BN][LD]
+    float* vs = ks + BN * LD;      // [BN][LD]
+    float* qs = vs + BN * LD;      // [BM][LD]
+    float* dos = qs + BM * LD;     // [BM][LD]
+    float* ps = dos + BM * LD;     // [BN][LDP], p^T in the input dtype
+    float* dss = ps + BN * LDP;    // [BN][LDP], ds^T in the input dtype
+    float* lse_s = dss + BN * LDP; // [BM]
+    float* dsum_s = lse_s + BM;    // [BM]
 
-  float acc_k[DPT], acc_v[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc_k[i] = acc_v[i] = 0.f;
+    const int tid = threadIdx.x;
+    const int r = tid / TPR, sub = tid % TPR;
+    const int krow = k0 + r;
 
-  for (int it = i0; it < n_q; ++it) {
-    const int q0 = it * BM;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
-    load_tile<T, D>(dos, dout + qbase, q0, Tq, tid);
-    if (tid < BM) {
-      const int g = q0 + tid;
-      lse_s[tid] = g < Tq ? lse[bh * Tq + g] : 0.f;
-      dsum_s[tid] = g < Tq ? dsum[bh * Tq + g] : 0.f;
+    if (i0 < n_q) {
+      load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
+      load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
     }
-    __syncthreads();
 
-    float s[NPT], dp[NPT];
+    float acc_k[DPT], acc_v[DPT];
 #pragma unroll
-    for (int c = 0; c < NPT; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 2
-    for (int d0 = 0; d0 < D; d0 += 8) {
-      float kr[8], vr[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        kr[e] = ks[r * LD + d0 + e];
-        vr[e] = vs[r * LD + d0 + e];
+    for (int i = 0; i < DPT; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    for (int it = i0; it < n_q; ++it) {
+      const int q0 = it * BM;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
+      load_tile<T, D>(dos, dout + qbase, q0, Tq, tid);
+      if (tid < BM) {
+        const int g = q0 + tid;
+        lse_s[tid] = g < Tq ? lse[bh * Tq + g] : 0.f;
+        dsum_s[tid] = g < Tq ? dsum[bh * Tq + g] : 0.f;
       }
+      __syncthreads();
+
+      float s[NPT], dp[NPT];
 #pragma unroll
-      for (int c = 0; c < NPT; ++c) {
-        const float* qr = qs + (sub + TPR * c) * LD + d0;
-        const float* dr = dos + (sub + TPR * c) * LD + d0;
+      for (int c = 0; c < NPT; ++c) s[c] = dp[c] = 0.f;
+#pragma unroll 2
+      for (int d0 = 0; d0 < D; d0 += 8) {
+        float kr[8], vr[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          s[c] = fmaf(qr[e], kr[e], s[c]);
-          dp[c] = fmaf(dr[e], vr[e], dp[c]);
+          kr[e] = ks[r * LD + d0 + e];
+          vr[e] = vs[r * LD + d0 + e];
+        }
+#pragma unroll
+        for (int c = 0; c < NPT; ++c) {
+          const float* qr = qs + (sub + TPR * c) * LD + d0;
+          const float* dr = dos + (sub + TPR * c) * LD + d0;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            s[c] = fmaf(qr[e], kr[e], s[c]);
+            dp[c] = fmaf(dr[e], vr[e], dp[c]);
+          }
+        }
+      }
+
+#pragma unroll
+      for (int c = 0; c < NPT; ++c) {
+        const int qi = sub + TPR * c, qrow = q0 + qi;
+        const bool masked = qrow >= Tq || krow >= Tk ||
+                            (causal && k_off + krow > q_off + qrow);
+        const float p = masked ? 0.f : expf(s[c] * scale - lse_s[qi]);
+        const float ds = p * (dp[c] - dsum_s[qi]) * scale;
+        ps[r * LDP + qi] = round_to<T>(p);
+        dss[r * LDP + qi] = round_to<T>(ds);
+      }
+      __syncwarp();
+
+#pragma unroll 4
+      for (int c = 0; c < BM; ++c) {
+        const float p = ps[r * LDP + c];
+        const float d = dss[r * LDP + c];
+        const float* dr = dos + c * LD + sub;
+        const float* qr = qs + c * LD + sub;
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) {
+          acc_v[i] = fmaf(p, dr[TPR * i], acc_v[i]);
+          acc_k[i] = fmaf(d, qr[TPR * i], acc_k[i]);
         }
       }
     }
 
-#pragma unroll
-    for (int c = 0; c < NPT; ++c) {
-      const int qi = sub + TPR * c, qrow = q0 + qi;
-      const bool masked = qrow >= Tq || krow >= Tk ||
-                          (causal && k_off + krow > q_off + qrow);
-      const float p = masked ? 0.f : expf(s[c] * scale - lse_s[qi]);
-      const float ds = p * (dp[c] - dsum_s[qi]) * scale;
-      ps[r * LDP + qi] = round_to<T>(p);
-      dss[r * LDP + qi] = round_to<T>(ds);
-    }
-    __syncwarp();
-
-#pragma unroll 4
-    for (int c = 0; c < BM; ++c) {
-      const float p = ps[r * LDP + c];
-      const float d = dss[r * LDP + c];
-      const float* dr = dos + c * LD + sub;
-      const float* qr = qs + c * LD + sub;
+    if (krow < Tk) {
+      const size_t off = kbase + (size_t)krow * D + sub;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) {
-        acc_v[i] = fmaf(p, dr[TPR * i], acc_v[i]);
-        acc_k[i] = fmaf(d, qr[TPR * i], acc_k[i]);
+        const size_t o = off + TPR * i;
+        dk[o] = accumulate ? dk[o] + acc_k[i] : acc_k[i];
+        dv[o] = accumulate ? dv[o] + acc_v[i] : acc_v[i];
       }
-    }
-  }
-
-  if (krow < Tk) {
-    const size_t off = kbase + (size_t)krow * D + sub;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const size_t o = off + TPR * i;
-      dk[o] = accumulate ? dk[o] + acc_k[i] : acc_k[i];
-      dv[o] = accumulate ? dv[o] + acc_v[i] : acc_v[i];
     }
   }
 }
 
 // Raise the kernel's dynamic shared-memory limit once per device (and so
-// outside any later CUDA-graph capture); setting the same value twice
-// from racing threads is benign.
+// outside any later CUDA-graph capture), where it needs more than the
+// 48 KB default; setting the same value twice from racing threads is
+// benign.
 template <typename K>
 int configure(K kernel, size_t smem, bool* configured) {
+  if (smem <= 48 * 1024) return 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -483,12 +554,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, float* dq, int B, int H,
               int Tq, int Tk, int q_off, int k_off, float scale, int causal,
               int accumulate, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr size_t smem = on_tensor_cores<T>()
+                              ? flash_bwd_mma::dq_smem_bytes<D>()
+                              : dq_smem_bytes<D>();
   static bool configured[64] = {};
   int err = configure(hop_dq_kernel<T, D>, smem, configured);
   if (err != 0) return err;
   dim3 grid((Tq + BM - 1) / BM, H, B);
-  hop_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+  hop_dq_kernel<T, D><<<grid, BwdThreads<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, dq,
       H, Tq, Tk, q_off, k_off, scale, causal, accumulate);
@@ -501,12 +574,14 @@ int launch_dkv(const void* q, const void* k, const void* v,
                float* dk, float* dv, int B, int H, int Tq, int Tk,
                int q_off, int k_off, float scale, int causal,
                int accumulate, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
+  constexpr size_t smem = on_tensor_cores<T>()
+                              ? flash_bwd_mma::dkv_smem_bytes<D>()
+                              : dkv_smem_bytes<D>();
   static bool configured[64] = {};
   int err = configure(hop_dkv_kernel<T, D>, smem, configured);
   if (err != 0) return err;
   dim3 grid((Tk + BN - 1) / BN, H, B);
-  hop_dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+  hop_dkv_kernel<T, D><<<grid, BwdThreads<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, dk,
       dv, H, Tq, Tk, q_off, k_off, scale, causal, accumulate);

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded through ``ctypes``.  The library lands
 in ``distkeras_tpu_torch/_cuda_build/`` under a name that carries the
-source's hash, so an edited source rebuilds at its first use and an
-unchanged one loads as it is.  Nothing here runs at import time.
+hash of the source, of every header beside it (``csrc/*.cuh``, which
+sources include by name) and of the flags, so an edited source or
+header rebuilds at its first use and an unchanged tree loads as it is.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, Path]:

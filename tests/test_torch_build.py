@@ -1,0 +1,115 @@
+"""The CUDA build's cache key and the smoke's ptxas report, on the CPU.
+
+``_build.library_path`` names each library by the hash of its source, of
+every header beside it and of the flags: an edited header must rebuild
+every library (they include it by name), an unchanged tree must load
+what it built.  Nothing here needs ``nvcc``; the sources are copied
+under ``tmp_path`` and ``_build._CSRC`` points there.
+"""
+
+import shutil
+
+import pytest
+
+from distkeras_tpu_torch.ops import _build
+
+SOURCES = sorted(p.stem for p in _build._CSRC.glob("*.cu"))
+HEADERS = sorted(p.name for p in _build._CSRC.glob("*.cuh"))
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    tree = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, tree)
+    monkeypatch.setattr(_build, "_CSRC", tree)
+    return tree
+
+
+def test_the_tree_has_the_shared_backward_header():
+    assert "flash_bwd_mma.cuh" in HEADERS
+    for name in ("flash_attention_bwd", "flash_hop"):
+        text = (_build._CSRC / f"{name}.cu").read_text()
+        assert '#include "flash_bwd_mma.cuh"' in text
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_an_unchanged_tree_gives_the_same_path(csrc, tmp_path, monkeypatch,
+                                               name):
+    first = _build.library_path(name)
+    assert _build.library_path(name) == first
+    assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
+    assert first.name.startswith(f"{name}-")
+    # the key is the content, not where the tree lies
+    moved = tmp_path / "moved"
+    shutil.copytree(csrc, moved)
+    monkeypatch.setattr(_build, "_CSRC", moved)
+    assert _build.library_path(name) == first
+
+
+@pytest.mark.parametrize("header", HEADERS)
+@pytest.mark.parametrize("name", SOURCES)
+def test_editing_a_header_changes_the_path(csrc, name, header):
+    before = _build.library_path(name)
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert _build.library_path(name) != before
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_editing_the_source_or_adding_a_header_changes_the_path(csrc,
+                                                                 name):
+    before = _build.library_path(name)
+    (csrc / "added.cuh").write_text("#pragma once\n")
+    with_header = _build.library_path(name)
+    assert with_header != before
+    src = csrc / f"{name}.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path(name) not in (before, with_header)
+
+
+def test_editing_another_source_keeps_the_path(csrc):
+    a, b = SOURCES[0], SOURCES[1]
+    before = _build.library_path(a)
+    src = csrc / f"{b}.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path(a) == before
+
+
+# an excerpt of nvcc -Xptxas -v for flash_attention_bwd.cu, in the
+# compiler's own format
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf10dkv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf10dkv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iifi
+    0 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf9dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf9dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf9dq_kernelIfLi128EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf9dq_kernelIfLi128EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN9flash_hop13hop_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_Pfiiiiifii' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_hop13hop_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_Pfiiiiifii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("dkv_kernel", {"bf16_d128": {"registers": 255, "spill_stores": 24,
+                                  "spill_loads": 16}}),
+    ("dq_kernel", {"bf16_d64": {"registers": 96, "spill_stores": 0,
+                                "spill_loads": 0},
+                   "f32_d128": {"registers": 128, "spill_stores": 0,
+                                "spill_loads": 0}}),
+    ("hop_dq_kernel", {"bf16_d64": {"registers": 112, "spill_stores": 0,
+                                    "spill_loads": 0}}),
+    ("hop_dkv_kernel", {}),
+])
+def test_smoke_reads_registers_and_spills_per_instantiation(kernel, want):
+    import chip_smoke
+
+    assert chip_smoke._kernel_resources(PTXAS_LOG, kernel) == want

@@ -5,8 +5,9 @@ kernel, a training step through the three flash kernels, a ResNet's
 gradients through the GroupNorm kernels against ``F.group_norm``,
 ADAG's rounds launching them, the fused-block kernels against their
 plain versions, their launches per step and a deterministic fused step,
-and the ring-hop kernels against their plain versions and a
-sequence-parallel LM step through them.
+the ring-hop kernels against their plain versions and a
+sequence-parallel LM step through them, and bit-equal reruns of the four
+bf16 backward kernels.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -409,6 +410,38 @@ def test_fused_training_is_deterministic(card):
         state = TrainState.create(model, start, tx)
         runs.append([float(step(state, batch)[1]["loss"]) for _ in range(2)])
     assert runs[0] == runs[1]
+
+
+# each bf16 backward kernel once: inputs -> its outputs; the hop kernels
+# at offsets that leave the block's diagonal off the 64-row tiles
+BF16_BWD_CALLS = {
+    "dq": lambda a, kw: (attention.flash_attention_bwd_dq(*a, **kw),),
+    "dkv": lambda a, kw: attention.flash_attention_bwd_dkv(*a, **kw),
+    "hop_dq": lambda a, kw: (attention.flash_hop_bwd_dq(
+        *a, q_offset=300, k_offset=200, **kw),),
+    "hop_dkv": lambda a, kw: attention.flash_hop_bwd_dkv(
+        *a, q_offset=300, k_offset=200, **kw)}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kernel", sorted(BF16_BWD_CALLS))
+def test_bf16_backward_kernels_rerun_bit_equal(card, kernel, d):
+    """Two runs of a bf16 backward kernel on the same inputs give the same
+    bits: every output element has one owner, so no atomics reorder its
+    sum.  520 rows: several tiles of 64 and a ragged last one."""
+    gen = torch.Generator(device="cuda").manual_seed(d + 11)
+    q, k, v, do = (torch.randn(2, 4, 520, d, device="cuda",
+                               dtype=torch.bfloat16, generator=gen)
+                   for _ in range(4))
+    lse = torch.randn(2, 4, 520, device="cuda", generator=gen) + 2
+    dsum = torch.randn(2, 4, 520, device="cuda", generator=gen)
+    args, kw = (q, k, v, do, lse, dsum), dict(scale=d ** -0.5, causal=True)
+    first = BF16_BWD_CALLS[kernel](args, kw)
+    second = BF16_BWD_CALLS[kernel](args, kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 # ---- the ring-hop kernels (#3-#4) and the sequence-parallel path ----
