@@ -8,14 +8,14 @@ Phases, in order; any failure exits nonzero and prints no result:
 1. build every CUDA kernel of the serving, LM training, PS training,
    fused ResNet and sequence-parallel paths from ``csrc/`` (one ``nvcc``
    per source, all started together), print the card's name and power
-   limit, and read each flash backward kernel's registers and spill
-   bytes per instantiation from the compiler's report;
+   limit, and read each flash forward and backward kernel's registers
+   and spill bytes per instantiation from the compiler's report;
 2. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (and a few more: the flash backward also at
    [8, 12, 1024, 128] bf16 causal, where its registers bind), with the
    tolerances below, and time kernel, plain version and the one
    PyTorch call that computes the same function (``library_ms``, timed
-   here and used nowhere in the port), with each backward kernel's
+   here and used nowhere in the port), with each flash kernel's
    achieved TFLOP/s;
 3. serve 16 requests through ``DecodeEngine`` with the GPT-2-small
    shaped LM (L12, d768, 12 heads, 4 KV heads, vocab 32768, max_len
@@ -191,9 +191,11 @@ def _kernel_resources(text: str, kernel: str) -> dict:
 
 # kernel table name -> (library, kernel template) of the ptxas report
 # written beside the kernels' entries
-PTXAS_ROWS = {"flash_attention_bwd_dq": ("flash_attention_bwd", "dq_kernel"),
+PTXAS_ROWS = {"flash_attention_fwd": ("flash_attention_fwd", "fwd_kernel"),
+              "flash_attention_bwd_dq": ("flash_attention_bwd", "dq_kernel"),
               "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                           "dkv_kernel"),
+              "flash_hop_fwd": ("flash_hop", "hop_fwd_kernel"),
               "flash_hop_bwd_dq": ("flash_hop", "hop_dq_kernel"),
               "flash_hop_bwd_dkv": ("flash_hop", "hop_dkv_kernel")}
 
@@ -245,11 +247,17 @@ def _profiled_ms(fn, iters: int) -> float:
     return sum(_device_kernels(prof, torch).values()) / iters
 
 
+def _attn_flops(b, h, t, d, causal):
+    """Operations of the forward's two T x T x D products per head;
+    causal work counts the causal half."""
+    return 4 * b * h * t * t * d * (0.5 if causal else 1.0)
+
+
 def _attn_bound(b, h, t, d, dtype, causal):
     """Least time (ms) and what bounds it: q, k, v read once, out and
     lse written once; causal work counts the causal half."""
     item = 2 if dtype == "bfloat16" else 4
-    flops = 4 * b * h * t * t * d * (0.5 if causal else 1.0)
+    flops = _attn_flops(b, h, t, d, causal)
     nbytes = 4 * b * h * t * d * item + b * h * t * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -426,11 +434,13 @@ def _time_attention(attention, torch, F, shapes):
         lib = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale), iters)
         bound, by = _attn_bound(b, h, t, d, "bfloat16", True)
+        flops = _attn_flops(b, h, t, d, True)
         out[(b, h, t, d)] = {"ms": ms, "plain_ms": plain,
                              "library_ms": lib, "bound_ms": bound,
-                             "bound_by": by}
-        print(f"timing [{b},{h},{t},{d}] bf16 causal: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+                             "bound_by": by, "tflops": _tflops(flops, ms)}
+        print(f"timing [{b},{h},{t},{d}] bf16 causal: kernel {ms:.4f} ms "
+              f"({_tflops(flops, ms):.1f} TFLOP/s), plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms ({_tflops(flops, lib):.1f} TFLOP/s), "
               f"bound {bound:.5f} ms ({by})")
     return out
 
@@ -2403,15 +2413,15 @@ def main() -> int:
              "max_new_tokens": int(n), "i": i}
             for i, (t, n) in enumerate(zip(lengths, news))]
     hd = LM["d_model"] // LM["num_heads"]
-    mix: dict = {}  # one launch per layer per admission at the padded length
+    serve_mix: dict = {}  # one launch per layer per admission, padded
     for t in lengths:
         key = (1, LM["num_heads"], -(-int(t) // 128) * 128, hd)
-        mix[key] = mix.get(key, 0) + LM["num_layers"]
+        serve_mix[key] = serve_mix.get(key, 0) + LM["num_layers"]
 
     # the training path launches each kernel once per layer per step at
     # [8, 12, 1024, 64]
     train_steps = TRAIN_EPOCHS * (TRAIN_ROWS // TRAIN["batch_size"])
-    fwd_mix = dict(mix)
+    fwd_mix = dict(serve_mix)
     fwd_mix[BWD_SHAPE] = (fwd_mix.get(BWD_SHAPE, 0)
                           + TRAIN_LM["num_layers"] * train_steps)
 
@@ -2543,12 +2553,20 @@ def main() -> int:
 
     # ---- 8. kernel table ---------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
-    # shapes (phase 4 checked the training path's counts); the backward
-    # kernels run on the training path only
+    # shapes (phase 4 checked the training path's counts), and over each
+    # path's own: the serving prefills and the training shape; the
+    # backward kernels run on the training path only
     total = sum(fwd_mix.values())
+    fwd_paths = {"serve": serve_mix, "train": {BWD_SHAPE: fwd_mix[BWD_SHAPE]}}
 
-    def mean(field):
-        return sum(fwd_mix[s] * timing[s][field] for s in fwd_mix) / total
+    def mean(field, shapes=fwd_mix):
+        return (sum(n * timing[s][field] for s, n in shapes.items())
+                / sum(shapes.values()))
+
+    def path_tflops(shapes):
+        flops = sum(n * _attn_flops(*s, True) for s, n in shapes.items())
+        return _tflops(flops, sum(n * timing[s]["ms"]
+                                  for s, n in shapes.items()))
 
     by_ops = sum(n for s, n in fwd_mix.items()
                  if timing[s]["bound_by"] == "operations")
@@ -2563,7 +2581,14 @@ def main() -> int:
                 "ms": mean("ms"), "plain_ms": mean("plain_ms"),
                 "bound_ms": mean("bound_ms"),
                 "bound_by": "operations" if 2 * by_ops >= total else "bytes",
-                "library_ms": mean("library_ms")}]
+                "library_ms": mean("library_ms"),
+                "tflops": path_tflops(fwd_mix),
+                "by_path": {path: {**{f: mean(f, shapes) for f in
+                                      ("ms", "plain_ms", "bound_ms",
+                                       "library_ms")},
+                                   "tflops": path_tflops(shapes)}
+                            for path, shapes in fwd_paths.items()},
+                "ptxas": ptxas["flash_attention_fwd"]}]
     for name, out, replaces in (
             ("flash_attention_bwd_dq", ("dq",),
              "distkeras_tpu/ops/attention.py:117"),

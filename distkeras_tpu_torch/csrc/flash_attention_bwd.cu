@@ -52,21 +52,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "flash_bwd_mma.cuh"
 
 namespace {
+
+using flash_bwd_mma::configure;
+using flash_bwd_mma::on_tensor_cores;
 
 constexpr int BM = 64;         // q rows per tile
 constexpr int BN = 64;         // k rows per tile
 constexpr int TPR = 4;         // threads per resident row
 constexpr int NTHREADS = 64 * TPR;
-
-template <typename T>
-__host__ __device__ constexpr bool on_tensor_cores() {
-  return std::is_same<T, __nv_bfloat16>::value;
-}
 
 // threads per block: the mma tiles' 4 warps, or the FMA tiles' 256
 template <typename T>
@@ -348,26 +344,6 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-}
-
-// Raise the kernel's dynamic shared-memory limit once per device (and so
-// outside any later CUDA-graph capture), where it needs more than the
-// 48 KB default; setting the same value twice from racing threads is
-// benign.
-template <typename K>
-int configure(K kernel, size_t smem, bool* configured) {
-  if (smem <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return -1;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  return 0;
 }
 
 template <typename T, int D>

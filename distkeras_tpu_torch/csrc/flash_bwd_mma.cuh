@@ -1,8 +1,10 @@
 // Tensor-core tile bodies of the bf16 flash-attention backward, shared by
 // flash_attention_bwd.cu (dq_kernel, dkv_kernel) and flash_hop.cu
-// (hop_dq_kernel, hop_dkv_kernel).  Device helpers only, no kernels: each
-// .cu keeps its own __global__ functions and its own epilogue (bf16
-// outputs written once, or f32 partials written or added to a carried sum).
+// (hop_dq_kernel, hop_dkv_kernel), and the helpers that flash_fwd_mma.cuh
+// builds the forward's body from.  No kernels: each .cu keeps its own
+// __global__ functions and its own epilogue (bf16 outputs written once,
+// or f32 partials written or added to a carried sum); the one host
+// helper raises a kernel's shared-memory limit.
 //
 // The function, for one (batch, head) slab of q, do [Tq, D] and k, v
 // [Tk, D] in bf16, the final lse and dsum = rowsum(do * out) [Tq] in f32:
@@ -38,9 +40,37 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace flash_bwd_mma {
 
 using bf16 = __nv_bfloat16;
+
+// the including kernels run bf16 on these tile bodies, f32 on FMA tiles
+template <typename T>
+__host__ __device__ constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// Host side: raise the kernel's dynamic shared-memory limit once per
+// device (and so outside any later CUDA-graph capture), where it needs
+// more than the 48 KB default; setting the same value twice from racing
+// threads is benign.
+template <typename K>
+int configure(K kernel, size_t smem, bool* configured) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return -1;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  return 0;
+}
 
 constexpr int BM = 64;            // q rows per tile
 constexpr int BN = 64;            // k rows per tile

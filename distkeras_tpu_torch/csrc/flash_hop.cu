@@ -39,37 +39,42 @@
 // us); the dk/dv kernel 4 (103.1 GFLOP, 104 us) on 152 MB (45 us): the
 // tensor cores bound both, and a diagonal hop does half the products.
 //
-// Forward, and the f32 backward: the tiling of flash_attention_fwd.cu and
-// flash_attention_bwd.cu's f32 kernels with the offsets added.  256
+// The grids: hop_fwd_kernel and hop_dq_kernel one block per (b, h, q
+// tile) with a loop over the k tiles up to the global diagonal (the
+// forward loads its state at the start and stores it at the end);
+// hop_dkv_kernel one block per (b, h, k tile), k and v resident, a loop
+// over the q tiles from the first one that reaches the tile.
+// bf16 (the path's dtype) runs on the tensor cores: the forward through
+// the mma.sync tile body of flash_fwd_mma.cuh (shared with the
+// device-local forward; its f32 state is read from global memory straight
+// into the C fragments and written back from them, two columns a lane),
+// the backward through those of flash_bwd_mma.cuh (shared with the
+// device-local backward).  128 threads, 4 warps of 16 resident rows, bf16
+// operands in padded shared memory by 16-byte cp.async, streamed tiles
+// double buffered, p and ds repacked from accumulators to A operands in
+// registers; the masking inputs (Tq, Tk, q_off, k_off, causal) pass as
+// they are.  The backward's f32 partials are written, or added to the
+// carried sums with one __fadd_rn each.
+// f32 runs the tiling of flash_attention_fwd.cu's and
+// flash_attention_bwd.cu's f32 kernels with the offsets added: 256
 // threads per block, 64-row tiles staged in shared memory as f32 with rows
 // padded by one word; four threads own one row of the resident tile and
 // each scores 16 of the other operand's 64 columns; the row's four threads
 // share a warp, so a __syncwarp orders the P or ds tile they exchange
 // through shared memory.  The products run as FMAs on the CUDA cores,
 // bound by shared-memory reads.
-//   hop_fwd_kernel: one block per (b, h, q tile); a loop over the k tiles
-//     up to the global diagonal; the state is loaded at the start and
-//     stored at the end.
-//   hop_dq_kernel: the same grid and loop; q and do resident.
-//   hop_dkv_kernel: one block per (b, h, k tile); k and v resident, a loop
-//     over the q tiles from the first one that reaches the tile.
-// The bf16 backward (the path's dtype) runs on the tensor cores instead:
-// the same grids and loops through the mma.sync tile bodies of
-// flash_bwd_mma.cuh (128 threads, 4 warps of 16 resident rows, bf16
-// operands in padded shared memory by 16-byte cp.async, streamed tiles
-// double buffered, p and ds repacked in registers), taking the masking
-// inputs (Tq, Tk, q_off, k_off, causal) as they are.  Its f32 partials
-// are written, or added to the carried sums with one __fadd_rn each.
 // No atomics: every output element has one owner, so runs are bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "flash_bwd_mma.cuh"
+#include "flash_fwd_mma.cuh"
 
 namespace flash_hop {
+
+using flash_bwd_mma::configure;
+using flash_bwd_mma::on_tensor_cores;
 
 constexpr int BM = 64;         // q rows per tile
 constexpr int BN = 64;         // k rows per tile
@@ -77,31 +82,20 @@ constexpr int TPR = 4;         // threads per resident row
 constexpr int NTHREADS = 64 * TPR;
 constexpr float NEG = -1e30f;  // the TPU kernel's mask value
 
+// threads per block: the mma tiles' 4 warps, or the FMA tiles' 256
 template <typename T>
-__host__ __device__ constexpr bool on_tensor_cores() {
-  return std::is_same<T, __nv_bfloat16>::value;
-}
-
-// threads per backward block: the mma tiles' 4 warps, or the FMA tiles'
-template <typename T>
-struct BwdThreads {
+struct Threads {
   static constexpr int value =
       on_tensor_cores<T>() ? flash_bwd_mma::NTHREADS : NTHREADS;
 };
 
+// the FMA tiles run f32 only: no conversion on load, rounding or store
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and widened back: the TPU kernels' .astype(input dtype)
 template <typename T>
@@ -139,9 +133,11 @@ __device__ __forceinline__ void put(float* x, float a0, float a1,
   x[1] = accumulate ? __fadd_rn(x[1], a1) : a1;
 }
 
-template <int D>
+template <typename T, int D>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (3 * 64 * (D + 1) + BM * (BN + 1));
+  return on_tensor_cores<T>()
+             ? flash_fwd_mma::smem_bytes<D>()
+             : sizeof(float) * (3 * 64 * (D + 1) + BM * (BN + 1));
 }
 
 template <int D>
@@ -155,22 +151,13 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Threads<T>::value)
 hop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, float* __restrict__ m,
                float* __restrict__ l, float* __restrict__ acc, int H,
                int Tq, int Tk, int q_off, int k_off, float scale,
                int causal) {
-  constexpr int LD = D + 1;
-  constexpr int LDP = BN + 1;
-  constexpr int DPT = D / TPR;   // output columns per thread
-  constexpr int NPT = BN / TPR;  // score columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;              // [BM][LD]
-  float* ks = qs + BM * LD;      // [BN][LD]
-  float* vs = ks + BN * LD;      // [BN][LD]
-  float* ps = vs + BN * LD;      // [BM][LDP]
-
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
   const size_t qbase = bh * (size_t)Tq * D;
@@ -178,91 +165,141 @@ hop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BM;
   const int n_tiles = live_k_tiles(q0, Tq, Tk, q_off, k_off, causal);
   if (n_tiles == 0) return;  // a dead tile: the state stays as it was
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, sub = tid % TPR;
-  const int row = q0 + r;
-  const bool live_row = row < Tq;
 
-  load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
-  float mi = live_row ? m[bh * Tq + row] : NEG;
-  float li = live_row ? l[bh * Tq + row] : 0.f;
-  float a[DPT];
-  float* arow = acc + qbase + (size_t)row * D + sub;
+  if constexpr (on_tensor_cores<T>()) {
+    // this lane's rows q0 + 16 * warp + g and + 8: the state straight
+    // into registers and the C fragments, and back
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int t = lane & 3;
+    int rows[2];
+    float mi[2], li[2], a[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) a[i] = live_row ? arow[TPR * i] : 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
-    load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
-    __syncthreads();
-
-    float s[NPT];
+    for (int hh = 0; hh < 2; ++hh) {
+      rows[hh] = q0 + 16 * warp + (lane >> 2) + 8 * hh;
+      const bool live = rows[hh] < Tq;
+      mi[hh] = live ? m[bh * Tq + rows[hh]] : NEG;
+      li[hh] = live ? l[bh * Tq + rows[hh]] : 0.f;
+      const float* arow = acc + qbase + (size_t)rows[hh] * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NPT; ++c) s[c] = 0.f;
+      for (int j = 0; j < D / 8; ++j) {
+        const float2 x = live ? *reinterpret_cast<const float2*>(arow + 8 * j)
+                              : make_float2(0.f, 0.f);
+        a[j][2 * hh] = x.x;
+        a[j][2 * hh + 1] = x.y;
+      }
+    }
+    flash_fwd_mma::fwd_tile<D>(q + qbase, k + kbase, v + kbase, q0, Tq, Tk,
+                               q_off, k_off, n_tiles, scale, causal, mi, li,
+                               a, smem);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (rows[hh] >= Tq) continue;
+      if (t == 0) {
+        m[bh * Tq + rows[hh]] = mi[hh];
+        l[bh * Tq + rows[hh]] = li[hh];
+      }
+      float* arow = acc + qbase + (size_t)rows[hh] * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(arow + 8 * j) =
+            make_float2(a[j][2 * hh], a[j][2 * hh + 1]);
+    }
+  } else {
+    constexpr int LD = D + 1;
+    constexpr int LDP = BN + 1;
+    constexpr int DPT = D / TPR;   // output columns per thread
+    constexpr int NPT = BN / TPR;  // score columns per thread
+    float* qs = smem;              // [BM][LD]
+    float* ks = qs + BM * LD;      // [BN][LD]
+    float* vs = ks + BN * LD;      // [BN][LD]
+    float* ps = vs + BN * LD;      // [BM][LDP]
+
+    const int tid = threadIdx.x;
+    const int r = tid / TPR, sub = tid % TPR;
+    const int row = q0 + r;
+    const bool live_row = row < Tq;
+
+    load_tile<T, D>(qs, q + qbase, q0, Tq, tid);
+    float mi = live_row ? m[bh * Tq + row] : NEG;
+    float li = live_row ? l[bh * Tq + row] : 0.f;
+    float a[DPT];
+    float* arow = acc + qbase + (size_t)row * D + sub;
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) a[i] = live_row ? arow[TPR * i] : 0.f;
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = j * BN;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, D>(ks, k + kbase, k0, Tk, tid);
+      load_tile<T, D>(vs, v + kbase, k0, Tk, tid);
+      __syncthreads();
+
+      float s[NPT];
+#pragma unroll
+      for (int c = 0; c < NPT; ++c) s[c] = 0.f;
 #pragma unroll 2
-    for (int d0 = 0; d0 < D; d0 += 8) {
-      float qr[8];
+      for (int d0 = 0; d0 < D; d0 += 8) {
+        float qr[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) qr[e] = qs[r * LD + d0 + e];
+        for (int e = 0; e < 8; ++e) qr[e] = qs[r * LD + d0 + e];
+#pragma unroll
+        for (int c = 0; c < NPT; ++c) {
+          const float* kr = ks + (sub + TPR * c) * LD + d0;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[c] = fmaf(qr[e], kr[e], s[c]);
+        }
+      }
+
+      bool masked[NPT];
+      float mt = NEG;
 #pragma unroll
       for (int c = 0; c < NPT; ++c) {
-        const float* kr = ks + (sub + TPR * c) * LD + d0;
+        const int col = k0 + sub + TPR * c;
+        masked[c] = col >= Tk || (causal && k_off + col > q_off + row);
+        s[c] = masked[c] ? NEG : s[c] * scale;
+        mt = fmaxf(mt, s[c]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(mi, mt);
+      const float corr = expf(mi - m_new);
+      float ls = 0.f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) s[c] = fmaf(qr[e], kr[e], s[c]);
+      for (int c = 0; c < NPT; ++c) {
+        const float p = masked[c] ? 0.f : expf(s[c] - m_new);
+        ls += p;
+        ps[r * LDP + sub + TPR * c] = round_to<T>(p);
+      }
+      ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+      ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+      li = li * corr + ls;
+      mi = m_new;
+      __syncwarp();
+
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) a[i] *= corr;
+#pragma unroll 4
+      for (int c = 0; c < BN; ++c) {
+        const float p = ps[r * LDP + c];
+        const float* vr = vs + c * LD + sub;
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) a[i] = fmaf(p, vr[TPR * i], a[i]);
       }
     }
 
-    bool masked[NPT];
-    float mt = NEG;
+    if (live_row) {
+      if (sub == 0) {
+        m[bh * Tq + row] = mi;
+        l[bh * Tq + row] = li;
+      }
 #pragma unroll
-    for (int c = 0; c < NPT; ++c) {
-      const int col = k0 + sub + TPR * c;
-      masked[c] = col >= Tk || (causal && k_off + col > q_off + row);
-      s[c] = masked[c] ? NEG : s[c] * scale;
-      mt = fmaxf(mt, s[c]);
+      for (int i = 0; i < DPT; ++i) arow[TPR * i] = a[i];
     }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(mi, mt);
-    const float corr = expf(mi - m_new);
-    float ls = 0.f;
-#pragma unroll
-    for (int c = 0; c < NPT; ++c) {
-      const float p = masked[c] ? 0.f : expf(s[c] - m_new);
-      ls += p;
-      ps[r * LDP + sub + TPR * c] = round_to<T>(p);
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    li = li * corr + ls;
-    mi = m_new;
-    __syncwarp();
-
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) a[i] *= corr;
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      const float p = ps[r * LDP + c];
-      const float* vr = vs + c * LD + sub;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) a[i] = fmaf(p, vr[TPR * i], a[i]);
-    }
-  }
-
-  if (live_row) {
-    if (sub == 0) {
-      m[bh * Tq + row] = mi;
-      l[bh * Tq + row] = li;
-    }
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) arow[TPR * i] = a[i];
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BwdThreads<T>::value)
+__global__ void __launch_bounds__(Threads<T>::value)
 hop_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dsum,
@@ -374,7 +411,7 @@ hop_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BwdThreads<T>::value)
+__global__ void __launch_bounds__(Threads<T>::value)
 hop_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse,
@@ -512,37 +549,17 @@ hop_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Raise the kernel's dynamic shared-memory limit once per device (and so
-// outside any later CUDA-graph capture), where it needs more than the
-// 48 KB default; setting the same value twice from racing threads is
-// benign.
-template <typename K>
-int configure(K kernel, size_t smem, bool* configured) {
-  if (smem <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return -1;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  return 0;
-}
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, float* m,
                float* l, float* acc, int B, int H, int Tq, int Tk,
                int q_off, int k_off, float scale, int causal,
                cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
+  constexpr size_t smem = fwd_smem_bytes<T, D>();
   static bool configured[64] = {};
   int err = configure(hop_fwd_kernel<T, D>, smem, configured);
   if (err != 0) return err;
   dim3 grid((Tq + BM - 1) / BM, H, B);
-  hop_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
+  hop_fwd_kernel<T, D><<<grid, Threads<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), m, l, acc, H, Tq, Tk, q_off, k_off, scale,
       causal);
@@ -561,7 +578,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   int err = configure(hop_dq_kernel<T, D>, smem, configured);
   if (err != 0) return err;
   dim3 grid((Tq + BM - 1) / BM, H, B);
-  hop_dq_kernel<T, D><<<grid, BwdThreads<T>::value, smem, stream>>>(
+  hop_dq_kernel<T, D><<<grid, Threads<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, dq,
       H, Tq, Tk, q_off, k_off, scale, causal, accumulate);
@@ -581,7 +598,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   int err = configure(hop_dkv_kernel<T, D>, smem, configured);
   if (err != 0) return err;
   dim3 grid((Tk + BN - 1) / BN, H, B);
-  hop_dkv_kernel<T, D><<<grid, BwdThreads<T>::value, smem, stream>>>(
+  hop_dkv_kernel<T, D><<<grid, Threads<T>::value, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, dk,
       dv, H, Tq, Tk, q_off, k_off, scale, causal, accumulate);

@@ -32,6 +32,13 @@ def test_the_tree_has_the_shared_backward_header():
         assert '#include "flash_bwd_mma.cuh"' in text
 
 
+@pytest.mark.parametrize("name", ["flash_attention_fwd", "flash_hop"])
+def test_both_forwards_include_the_shared_forward_header(name):
+    assert "flash_fwd_mma.cuh" in HEADERS
+    text = (_build._CSRC / f"{name}.cu").read_text()
+    assert '#include "flash_fwd_mma.cuh"' in text
+
+
 @pytest.mark.parametrize("name", SOURCES)
 def test_an_unchanged_tree_gives_the_same_path(csrc, tmp_path, monkeypatch,
                                                name):
@@ -75,8 +82,8 @@ def test_editing_another_source_keeps_the_path(csrc):
     assert _build.library_path(a) == before
 
 
-# an excerpt of nvcc -Xptxas -v for flash_attention_bwd.cu, in the
-# compiler's own format
+# excerpts of nvcc -Xptxas -v for the flash sources, in the compiler's
+# own format (the forward kernels' as sm_90a reported them)
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__a2c582f9_22_flash_attention_bwd_cu_107c2caf10dkv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iifi' for 'sm_90a'
@@ -95,6 +102,38 @@ ptxas info    : Compiling entry function '_ZN9flash_hop13hop_dq_kernelI13__nv_bf
 ptxas info    : Function properties for _ZN9flash_hop13hop_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_Pfiiiiifii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 112 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_Pfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PS2_Pfiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 238 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_Pfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_Pfiifi
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_Pfiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__3954c0ef_22_flash_attention_fwd_cu_2c13897910fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN9flash_hop14hop_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PfS5_S5_iiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_hop14hop_fwd_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_PfS5_S5_iiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 226 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN9flash_hop14hop_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PfS5_S5_iiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_hop14hop_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PfS5_S5_iiiiifi
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN9flash_hop14hop_fwd_kernelIfLi128EEEvPKT_S3_S3_PfS4_S4_iiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_hop14hop_fwd_kernelIfLi128EEEvPKT_S3_S3_PfS4_S4_iiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 89 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN9flash_hop14hop_fwd_kernelIfLi64EEEvPKT_S3_S3_PfS4_S4_iiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN9flash_hop14hop_fwd_kernelIfLi64EEEvPKT_S3_S3_PfS4_S4_iiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 76 registers, used 1 barriers
 """
 
 
@@ -108,6 +147,23 @@ ptxas info    : Used 112 registers, used 1 barriers
     ("hop_dq_kernel", {"bf16_d64": {"registers": 112, "spill_stores": 0,
                                     "spill_loads": 0}}),
     ("hop_dkv_kernel", {}),
+    # the length prefix keeps fwd_kernel from matching hop_fwd_kernel
+    ("fwd_kernel", {"bf16_d128": {"registers": 238, "spill_stores": 0,
+                                  "spill_loads": 0},
+                    "bf16_d64": {"registers": 128, "spill_stores": 8,
+                                 "spill_loads": 8},
+                    "f32_d128": {"registers": 80, "spill_stores": 0,
+                                 "spill_loads": 0},
+                    "f32_d64": {"registers": 64, "spill_stores": 0,
+                                "spill_loads": 0}}),
+    ("hop_fwd_kernel", {"bf16_d128": {"registers": 226, "spill_stores": 0,
+                                      "spill_loads": 0},
+                        "bf16_d64": {"registers": 128, "spill_stores": 4,
+                                     "spill_loads": 4},
+                        "f32_d128": {"registers": 89, "spill_stores": 0,
+                                     "spill_loads": 0},
+                        "f32_d64": {"registers": 76, "spill_stores": 0,
+                                    "spill_loads": 0}}),
 ])
 def test_smoke_reads_registers_and_spills_per_instantiation(kernel, want):
     import chip_smoke

@@ -6,8 +6,8 @@ gradients through the GroupNorm kernels against ``F.group_norm``,
 ADAG's rounds launching them, the fused-block kernels against their
 plain versions, their launches per step and a deterministic fused step,
 the ring-hop kernels against their plain versions and a
-sequence-parallel LM step through them, and bit-equal reruns of the four
-bf16 backward kernels.
+sequence-parallel LM step through them, and bit-equal reruns of the bf16
+forward and backward kernels.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -45,12 +45,16 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# 200 rows: one ragged tile past three full ones; 520 rows, causal: a
+# ragged tile past eight, so the walk to the diagonal crosses tiles the
+# mask leaves whole before it meets the ragged edge
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("causal,t", [(True, 200), (False, 200),
+                                      (True, 520)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_kernel_matches_plain(card, dtype, causal, d):
+def test_kernel_matches_plain(card, dtype, causal, t, d):
     gen = torch.Generator(device="cuda").manual_seed(d)
-    q, k, v = (torch.randn(2, 4, 200, d, device="cuda", dtype=dtype,
+    q, k, v = (torch.randn(2, 4, t, d, device="cuda", dtype=dtype,
                            generator=gen) for _ in range(3))
     before = attention.launches
     out, lse = attention.flash_attention_bhtd(q, k, v, scale=d ** -0.5,
@@ -438,6 +442,40 @@ def test_bf16_backward_kernels_rerun_bit_equal(card, kernel, d):
     args, kw = (q, k, v, do, lse, dsum), dict(scale=d ** -0.5, causal=True)
     first = BF16_BWD_CALLS[kernel](args, kw)
     second = BF16_BWD_CALLS[kernel](args, kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
+# each bf16 forward kernel once: inputs -> its outputs; the hop kernel from
+# a carried state (cloned: it updates the state in place) at offsets that
+# leave the block's diagonal off the 64-row tiles
+BF16_FWD_CALLS = {
+    "fwd_causal": lambda q, k, v, st, s: attention.flash_attention_bhtd(
+        q, k, v, scale=s, causal=True),
+    "fwd": lambda q, k, v, st, s: attention.flash_attention_bhtd(
+        q, k, v, scale=s, causal=False),
+    "hop_fwd": lambda q, k, v, st, s: attention.flash_hop_fwd(
+        q, k, v, *(x.clone() for x in st), q_offset=300, k_offset=200,
+        scale=s, causal=True)}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kernel", sorted(BF16_FWD_CALLS))
+def test_bf16_forward_kernels_rerun_bit_equal(card, kernel, d):
+    """Two runs of a bf16 forward kernel on the same inputs give the same
+    bits: each row's state has one owner.  520 rows: several tiles of 64
+    and a ragged last one."""
+    gen = torch.Generator(device="cuda").manual_seed(d + 13)
+    q, k, v = (torch.randn(2, 4, 520, d, device="cuda",
+                           dtype=torch.bfloat16, generator=gen)
+               for _ in range(3))
+    state = (torch.randn(2, 4, 520, device="cuda", generator=gen),
+             torch.rand(2, 4, 520, device="cuda", generator=gen) + 0.5,
+             torch.randn(2, 4, 520, d, device="cuda", generator=gen))
+    first = BF16_FWD_CALLS[kernel](q, k, v, state, d ** -0.5)
+    second = BF16_FWD_CALLS[kernel](q, k, v, state, d ** -0.5)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert bool(torch.isfinite(a).all())
