@@ -9,7 +9,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    fused ResNet and sequence-parallel paths from ``csrc/`` (one ``nvcc``
    per source, all started together), print the card's name and power
    limit, and read each flash forward and backward kernel's registers
-   and spill bytes per instantiation from the compiler's report;
+   and spill bytes per instantiation from the compiler's report, and
+   those of the fused bf16 backwards' product body;
 2. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (and a few more: the flash backward also at
    [8, 12, 1024, 128] bf16 causal, where its registers bind), with the
@@ -55,9 +56,11 @@ Phases, in order; any failure exits nonzero and prints no result:
 6. the fused ResNet path: (a) hold the four fused-block kernels against
    their plain versions at every call shape of ResNet-50's
    ``fusion="pallas_block"`` path at batch 256 (12 fused-conv and 4 tail
-   shapes, bf16 and f32; ``TOL_FB*``), (b) time each per launch against
+   shapes, bf16 and f32; ``TOL_FB*``; the bf16 backwards run twice and
+   must be bit-equal), (b) time each per launch against
    its bound, its plain version and the torch spelling of the same region
-   as ``fusion="none"`` runs it, (c) train ``scripts/perf_fused_e2e.py``'s
+   as ``fusion="none"`` runs it, with the bf16 backwards' device time by
+   grid and #8 also under the pass plan its byte rule did not choose, (c) train ``scripts/perf_fused_e2e.py``'s
    configuration (ResNet-50, 224 px, s2d stem, bf16, momentum at lr 0.1,
    batch 256) through ``SingleTrainer`` for 2 epochs of 4 steps: exactly
    20/20/16/16 launches of the four kernels per step, finite losses, the
@@ -154,7 +157,8 @@ def _card_line() -> str:
 def _ptxas_report(text: str) -> dict:
     """Registers and spill bytes of each function in an ``nvcc -Xptxas
     -v`` report: ``{mangled name: {"registers": n, "spill_stores": n,
-    "spill_loads": n}}``."""
+    "spill_loads": n}}``, and ``"smem"`` where the report gives static
+    shared memory."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -173,19 +177,32 @@ def _ptxas_report(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["smem"] = int(m.group(1))
     return out
 
 
 def _kernel_resources(text: str, kernel: str) -> dict:
     """The ptxas report of each instantiation of the kernel template
-    named ``kernel`` (unqualified), keyed ``bf16_d64``, ``f32_d128``..."""
-    pat = re.compile(rf"{len(kernel)}{kernel}I(13__nv_bfloat16|f)Li(\d+)E")
+    named ``kernel`` (unqualified): a flash kernel ``<T, D>`` keyed
+    ``bf16_d64``, ``f32_d128``...; the fused block's product body
+    ``gemm_kernel<BN, NWG, A_MN, B_MN, Epi>`` keyed by its epilogue, BN
+    and NWG: ``StatsEpi_n128_w2``..."""
+    flash = re.compile(rf"{len(kernel)}{kernel}I(13__nv_bfloat16|f)Li(\d+)E")
+    body = re.compile(rf"{len(kernel)}{kernel}ILi(\d+)ELi(\d+)ELb[01]ELb[01]E"
+                      rf"NS0_(\d+)")
     res = {}
     for name, info in _ptxas_report(text).items():
-        m = pat.search(name)
+        m = flash.search(name)
         if m:
             dtype = "f32" if m.group(1) == "f" else "bf16"
             res[f"{dtype}_d{m.group(2)}"] = info
+            continue
+        m = body.search(name)
+        if m:
+            epi = name[m.end():m.end() + int(m.group(3))]
+            res[f"{epi}_n{m.group(1)}_w{m.group(2)}"] = info
     return dict(sorted(res.items()))
 
 
@@ -197,7 +214,16 @@ PTXAS_ROWS = {"flash_attention_fwd": ("flash_attention_fwd", "fwd_kernel"),
                                           "dkv_kernel"),
               "flash_hop_fwd": ("flash_hop", "hop_fwd_kernel"),
               "flash_hop_bwd_dq": ("flash_hop", "hop_dq_kernel"),
-              "flash_hop_bwd_dkv": ("flash_hop", "hop_dkv_kernel")}
+              "flash_hop_bwd_dkv": ("flash_hop", "hop_dkv_kernel"),
+              "conv1x1_gn_bwd": ("fused_block", "gemm_kernel"),
+              "bottleneck_tail_bwd": ("fused_block", "gemm_kernel")}
+# the product body's epilogues each bf16 fused backward runs (the first
+# field of _kernel_resources's keys)
+PTXAS_EPILOGUES = {"conv1x1_gn_bwd": ("StatsEpi", "BwdStatsEpi",
+                                      "BwdApplyEpi", "StoreEpi", "ChunkEpi"),
+                   "bottleneck_tail_bwd": ("StatsEpi", "BwdStatsEpi",
+                                           "BwdApplyEpi", "DhEpi",
+                                           "ChunkEpi")}
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -1477,6 +1503,20 @@ def _hold(kind, key, dname, names, got, want, torch):
     return row
 
 
+def _rerun(row, first, again, torch):
+    """A bf16 backward run twice on the same inputs must give the same
+    bits (no atomics; every sum in a fixed order)."""
+    if again is None:
+        return
+    row["rerun_bit_equal"] = all(torch.equal(a, b)
+                                 for a, b in zip(first, again))
+    print(f"fused_block {row['kernel']} {row['key']} bf16 backward rerun "
+          f"bit-equal: {row['rerun_bit_equal']}")
+    if not row["rerun_bit_equal"]:
+        raise SystemExit(f"the bf16 {row['kernel']} backward is not "
+                         f"deterministic at {row['key']}")
+
+
 def _check_fused(fb, torch, conv_keys, tail_keys):
     """(a) The four kernels against their plain versions at every call
     shape of the path, bf16 and f32, with the path's ReLU settings."""
@@ -1492,11 +1532,14 @@ def _check_fused(fb, torch, conv_keys, tail_keys):
             want = (fb.conv1x1_gn_fwd_reference(x, w, gamma, beta, **kw),
                     *fb.conv1x1_gn_bwd_reference(x, w, gamma, beta, dy,
                                                  **kw))
+            again = (fb.conv1x1_gn_bwd(x, w, gamma, beta, dy, **kw)
+                     if dname == "bfloat16" else None)
             torch.cuda.synchronize()
             rows.append(_hold("conv1x1_gn", key, dname,
                               ("y", "dx", "dw", "dgamma", "dbeta"), got,
                               want, torch))
-            del x, w, dy, got, want
+            _rerun(rows[-1], got[1:], again, torch)
+            del x, w, dy, got, want, again
     for key in tail_keys:
         for dname in ("bfloat16", "float32"):
             args = _tail_case(fb, torch, gen, key, getattr(torch, dname))
@@ -1505,11 +1548,14 @@ def _check_fused(fb, torch, conv_keys, tail_keys):
                    *fb.bottleneck_tail_bwd(*args, **kw))
             want = (fb.bottleneck_tail_fwd_reference(*args[:7], **kw),
                     *fb.bottleneck_tail_bwd_reference(*args, **kw))
+            again = (fb.bottleneck_tail_bwd(*args, **kw)
+                     if dname == "bfloat16" else None)
             torch.cuda.synchronize()
             rows.append(_hold("bottleneck_tail", key, dname,
                               ("out", "dy2", "dw", "dg2", "db2", "dg3",
                                "db3", "dres"), got, want, torch))
-            del args, got, want
+            _rerun(rows[-1], got[1:], again, torch)
+            del args, got, want, again
     torch.cuda.empty_cache()
     return rows
 
@@ -1563,10 +1609,58 @@ def _img4(t):
     return t.view(t.shape[0], t.shape[1], 1, t.shape[2]).permute(0, 3, 1, 2)
 
 
+def _grid_ms(fn, torch):
+    """Each kernel one ``fn()`` call launches, by name (a short name for
+    the fused product body), from the profiler's trace of the call: its
+    device time (``ms``) and, where the trace records them, the shared
+    memory (bytes, static and dynamic) and the registers a thread it was
+    launched with (the largest over its launches).  One call warms the
+    tracer up (a trace started cold loses a call's first grids) and the
+    next is recorded; the trace is written into the kernels' build
+    directory and removed."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from distkeras_tpu_torch.ops import _build
+
+    path = _build.BUILD_DIR / "grids_trace.json"
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    out = {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        name = ev["name"]
+        m = re.search(r"gemm_kernel<(\d+), (\d+), \w+, \w+, "
+                      r"fused_block::tc::(\w+)>", name)
+        m2 = re.search(r"::(\w+_kernel)", name)
+        key = (f"{m.group(3)}_n{m.group(1)}_w{m.group(2)}" if m
+               else m2.group(1) if m2 else name[:40])
+        grid = out.setdefault(key, {"ms": 0.0})
+        grid["ms"] += ev["dur"] / 1e3
+        args = ev.get("args", {})
+        for field, label in (("smem", "shared memory"),
+                             ("registers", "registers per thread")):
+            if label in args:
+                grid[field] = max(grid.get(field, 0), int(args[label]))
+    return out
+
+
 def _time_fused(fb, torch, F, conv_mix, tail_mix):
     """(b) Per launch at each call shape of the path, bf16: kernels,
     plain versions and the torch spelling of the same region (forward by
-    graph replay; the spelling's backward by profiler device time)."""
+    graph replay; the spelling's backward by profiler device time); the
+    backward kernels' grids from one profiled call; #8 under both pass
+    plans (``bwd_plan``: y kept in f32, or recomputed)."""
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(9)
     for kind, mix in (("conv", conv_mix), ("tail", tail_mix)):
@@ -1612,6 +1706,14 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
                 "bwd_plain_ms": _time_ms(lambda: bwd_ref(*args, **kw), 3),
                 "bwd_spelled_ms": _profiled_ms(lambda: torch.autograd.grad(
                     spelled, leaves, dy4, retain_graph=True), 5)}
+            row["bwd_grids"] = _grid_ms(lambda: bwd(*args, **kw), torch)
+            if kind == "conv":
+                store = fb.bwd_plan("conv", *key[:5], torch.bfloat16)["store"]
+                row["bwd_plan"] = "store" if store else "recompute"
+                row["bwd_other_plan_ms"] = _time_ms(
+                    lambda: fb._conv_gn_bwd_kernel(
+                        *args, groups=key[4], eps=FB_EPS, relu=key[5],
+                        store=not store), 5)
             for tag, backward in (("fwd", False), ("bwd", True)):
                 bound, by, flops, nbytes = _fb_bound(kind, key, backward)
                 row[f"{tag}_bound_ms"], row[f"{tag}_bound_by"] = bound, by
@@ -1620,9 +1722,45 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
             out[(kind, key)] = row
             print(f"timing {kind} {list(key)} bf16 (x{mix[key]} per step): "
                   + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
-                             else f"{k}={v}" for k, v in row.items()))
+                             else f"{k}={v}" for k, v in row.items()
+                             if k != "bwd_grids")
+                  + " | grids ms: " + " ".join(
+                      f"{g}={d['ms']:.4f}"
+                      for g, d in row["bwd_grids"].items()))
             del args, fargs, leaves, spelled, dy4
             torch.cuda.empty_cache()
+    return out
+
+
+def _launched(fb_timing, kind, mix):
+    """The grids of a bf16 backward over the path's call shapes: the
+    shared memory (bytes) and registers a thread they were launched with,
+    [least, most] by grid (the product body keyed as in its ptxas
+    report), where the profiler's trace records them."""
+    out = {}
+    for k in mix:
+        for grid, g in fb_timing[(kind, k)]["bwd_grids"].items():
+            for f in ("smem", "registers"):
+                if f in g:
+                    lo, hi = out.setdefault(grid, {}).get(f, (g[f], g[f]))
+                    out[grid][f] = [min(lo, g[f]), max(hi, g[f])]
+    return dict(sorted(out.items()))
+
+
+def _plan_means(fb_timing, mix):
+    """#8's launch-weighted times over the calls where its plan rule
+    (``_store_y``) keeps y ("store") and where it recomputes y: under the
+    chosen plan and under the other."""
+    out = {}
+    for plan in ("store", "recompute"):
+        keys = [k for k in mix if fb_timing[("conv", k)]["bwd_plan"] == plan]
+        n = sum(mix[k] for k in keys)
+        if n:
+            out[plan] = {"calls": n, **{
+                f: sum(mix[k] * fb_timing[("conv", k)][field]
+                       for k in keys) / n
+                for f, field in (("chosen_ms", "bwd_ms"),
+                                 ("other_ms", "bwd_other_plan_ms"))}}
     return out
 
 
@@ -2397,6 +2535,9 @@ def main() -> int:
     ptxas = {row: _kernel_resources(libs[lib].with_suffix(".log").read_text(),
                                     kernel)
              for row, (lib, kernel) in PTXAS_ROWS.items()}
+    for row, epis in PTXAS_EPILOGUES.items():
+        ptxas[row] = {k: v for k, v in ptxas[row].items()
+                      if k.split("_")[0] in epis}
     for row, res in ptxas.items():
         print(f"ptxas {row}: {res}")
     card = _card_line()
@@ -2657,7 +2798,12 @@ def main() -> int:
             "bound_by": "operations" if 2 * by_ops >= n_all else "bytes",
             "library_ms": None,
             "torch_spelling_ms": fb_mean(f"{pre}_spelled_ms"),
-            "torch_spelling_calls": SPELLED_CALLS[kind]})
+            "torch_spelling_calls": SPELLED_CALLS[kind],
+            **({"ptxas": ptxas[name]} if name in ptxas else {}),
+            **({"launched": _launched(fb_timing, kind, mix)}
+               if pre == "bwd" else {}),
+            **({"plans": _plan_means(fb_timing, mix)}
+               if name == "conv1x1_gn_bwd" else {})})
     # the hop kernels' numbers are launch-weighted over the ring's hop
     # mix (per layer and direction: 4 diagonal, 6 past, 6 dead hops); a
     # dead hop has no library call, so library_ms is weighted over the

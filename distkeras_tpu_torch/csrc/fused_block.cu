@@ -30,14 +30,15 @@
 // the statistics, the product and the norm run in one pass over it.
 // Here a block has at most 227 KB of shared memory and the batch's
 // images are too few to fill 132 SMs one by one, so each direction is a
-// chain of grids on the caller's stream:
+// chain of grids on the caller's stream.
+//
+// The forwards (both dtypes) and the f32 backwards:
 //   * products: a tiled matrix product with generic strides (so x @ w,
 //     dy @ w^T and x^T @ dy are one kernel), f32 sums: for bf16 the
 //     tensor cores through mma.sync.m16n8k16 (exact products, f32
 //     accumulation), for f32 FMA on CUDA cores (never TF32).  The f32
 //     product lands in a workspace rather than being recomputed for the
-//     norm (the TPU's choice was to recompute in VMEM; here the second
-//     product would cost more than one f32 write and read);
+//     norm;
 //   * statistics: per (row tile, image) blocks take f32 per-channel
 //     partial sums; every block of the next grid folds its image's
 //     partials in a fixed order, then groups them;
@@ -45,15 +46,35 @@
 //   * the weight gradient: a product over all B*HW rows, cut into
 //     chunks of rows, each chunk's f32 partial written apart and folded
 //     in a fixed order; dgamma and dbeta per image, folded the same way.
+//
+// The bf16 backwards (conv_gn_bwd, tail_bwd) were bound by bytes they
+// need not move: f32 workspaces of the product written once and read
+// three times (the tail's [B*HW, C_out] one alone 3.3 GB a call at the
+// first stage), 2-byte loads into a 64 x 64 mma.sync tile, and one
+// element a thread in the norm passes.  They run on fused_gemm.cuh: one
+// wgmma product body fed by TMA, whose epilogue does the GroupNorm work
+// on the accumulators (statistics; xhat, the ReLU tests, dz and its
+// sums; dy_raw; the tail's dh behind h's ReLU).  The rule of each plan:
+// write an f32 intermediate only where that takes less time than
+// recomputing it on the tensor cores from its bf16 input.  So the tail
+// recomputes y3 = h @ w three times (P1 statistics, P2 dres and GN3's
+// sums, P3 dy3) instead of keeping it, and keeps dh (4 C_m bytes a row
+// against 2 C_out to recompute); conv_gn_bwd recomputes y only where
+// its input is narrow, since each recompute is a product of C_in depth
+// as well as a read of x, and keeps it in f32 elsewhere
+// (ops/fused_block.py _store_y, bwd_plan).  The passes left outside a
+// product move 16 bytes a thread, and each image's group statistics are
+// folded once into a [B, G] row.
+//
 // No atomics: a run is deterministic.  Where the plain version rounds
 // (the affine, the ReLU tests, dy_raw), the kernels round the same way
 // with __fmul_rn / __fadd_rn / __fsub_rn, so nvcc fuses nothing there.
-// A later step is one pass per direction (wgmma with TMA, a cluster per
-// image exchanging statistics through distributed shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fused_gemm.cuh"
 
 // A named namespace around the anonymous one, so a profiler tells these
 // kernels from group_norm.cu's of the same names.
@@ -67,7 +88,9 @@ constexpr int MMA_K = 32;      // tensor-core product depth step
 constexpr int MMA_LD = MMA_K + 8;  // padded shared row (bf16 elements)
 
 enum { APPLY_PLAIN = 0, APPLY_RELU = 1, APPLY_RESID_RELU = 2 };
-enum { MASK_NONE = 0, MASK_RELU = 1, MASK_RESID = 2 };
+using tc::MASK_NONE;
+using tc::MASK_RELU;
+using tc::MASK_RESID;
 
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
@@ -347,6 +370,273 @@ __global__ void fold_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+// dgamma (y 0) and dbeta (y 1) of per_image[2][B][C], each summed over
+// the images in order.
+__global__ void fold2_kernel(const float* __restrict__ per_image,
+                             float* __restrict__ dgamma,
+                             float* __restrict__ dbeta, int B, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const float* p = per_image + (size_t)blockIdx.y * B * C + c;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) s += p[(size_t)b * C];
+  (blockIdx.y == 0 ? dgamma : dbeta)[c] = s;
+}
+
+// ---- 16-byte passes and folds of the bf16 backwards ----------------------
+
+// Thread t owns channels 8v .. 8v + 7, v = t % VC (VC = C / 8 vectors,
+// at most NT by MAX_CHANNELS), and walks the rows rl, rl + RP, ... of its
+// tile (RP = NT / VC row lanes; threads with rl >= RP idle).
+struct Lanes8 {
+  int VC, RP, v, rl;
+  __device__ explicit Lanes8(int C) {
+    VC = C / 8;
+    RP = NT / VC;
+    v = threadIdx.x % VC;
+    rl = threadIdx.x / VC;
+  }
+};
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// The parameters of the thread's 8 channels: mean, inv, gamma, beta from
+// image b's folded rows gst[B][G][4] (and the group terms u1, u2).
+struct Cols8 {
+  float m[8], iv[8], ga[8], be[8], u1[8], u2[8];
+  __device__ Cols8(const float* gst, const float* gamma, const float* beta,
+                   int b, int c0, int C, int G, bool terms) {
+    const int cg = C / G;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float* q = gst + ((size_t)b * G + (c0 + i) / cg) * 4;
+      m[i] = q[0];
+      iv[i] = q[1];
+      ga[i] = gamma[c0 + i];
+      be[i] = beta[c0 + i];
+      u1[i] = terms ? q[2] : 0.f;
+      u2[i] = terms ? q[3] : 0.f;
+    }
+  }
+};
+
+// Writes the row lanes' sums s1, s2 into red[2][RP][C], then folds them
+// in lane order into out[0..C) and out[C..2C).  Ends in a barrier.
+__device__ __forceinline__ void fold_lanes8(float* red, const float* s1,
+                                            const float* s2, float* out,
+                                            const Lanes8& L, int C) {
+  if (L.rl < L.RP) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      red[L.rl * C + 8 * L.v + i] = s1[i];
+      red[(L.RP + L.rl) * C + 8 * L.v + i] = s2[i];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float a = 0.f, q = 0.f;
+    for (int r = 0; r < L.RP; ++r) {
+      a += red[r * C + c];
+      q += red[(L.RP + r) * C + c];
+    }
+    out[c] = a;
+    out[C + c] = q;
+  }
+  __syncthreads();
+}
+
+// Per-tile channel sums of a and a^2 -> part[B][T][2][C].
+template <typename TI>
+__global__ void __launch_bounds__(NT) stats8_kernel(
+    const TI* __restrict__ a, float* __restrict__ part, int HW, int C, int R,
+    int ntiles) {
+  extern __shared__ float red[];  // [2][RP][C]
+  const Lanes8 L(C);
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int r0 = tile * R, r1 = min(HW, r0 + R);
+  const TI* base = a + (size_t)b * HW * C + 8 * L.v;
+  float s1[8] = {}, s2[8] = {};
+  if (L.rl < L.RP) {
+    for (int r = r0 + L.rl; r < r1; r += L.RP) {
+      float x[8];
+      load8(base + (size_t)r * C, x);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s1[i] += x[i];
+        s2[i] += x[i] * x[i];
+      }
+    }
+  }
+  fold_lanes8(red, s1, s2, part + ((size_t)b * ntiles + tile) * 2 * C, L, C);
+}
+
+// out = [relu]((a - mean) * inv * gamma + beta), one rounding to TO.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(NT) apply8_kernel(
+    const TI* __restrict__ a, const float* __restrict__ gst,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    TO* __restrict__ out, int HW, int C, int G, int R, int relu) {
+  const Lanes8 L(C);
+  if (L.rl >= L.RP) return;
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int r0 = tile * R, r1 = min(HW, r0 + R);
+  const Cols8 p(gst, gamma, beta, b, 8 * L.v, C, G, false);
+  const size_t base = (size_t)b * HW * C + 8 * L.v;
+  for (int r = r0 + L.rl; r < r1; r += L.RP) {
+    float x[8];
+    load8(a + base + (size_t)r * C, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xh = __fmul_rn(__fsub_rn(x[i], p.m[i]), p.iv[i]);
+      const float o = __fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]);
+      x[i] = relu ? fmaxf(o, 0.f) : o;
+    }
+    store8(out + base + (size_t)r * C, x);
+  }
+}
+
+// GroupNorm backward, first pass over a kept raw tensor: per-tile sums
+// of the masked gradient dz and of dz * xhat -> partd[B][T][2][C].
+template <typename TR, typename TG>
+__global__ void __launch_bounds__(NT) bwd_stats8_kernel(
+    const TR* __restrict__ raw, const TG* __restrict__ grad,
+    const float* __restrict__ gst, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float* __restrict__ partd, int HW, int C,
+    int G, int R, int ntiles, int mask) {
+  extern __shared__ float red[];  // [2][RP][C]
+  const Lanes8 L(C);
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int r0 = tile * R, r1 = min(HW, r0 + R);
+  float s1[8] = {}, s2[8] = {};
+  if (L.rl < L.RP) {
+    const Cols8 p(gst, gamma, beta, b, 8 * L.v, C, G, false);
+    const size_t base = (size_t)b * HW * C + 8 * L.v;
+    for (int r = r0 + L.rl; r < r1; r += L.RP) {
+      float x[8], d[8];
+      load8(raw + base + (size_t)r * C, x);
+      load8(grad + base + (size_t)r * C, d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xh = __fmul_rn(__fsub_rn(x[i], p.m[i]), p.iv[i]);
+        if (mask == MASK_RELU &&
+            !(__fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]) > 0.f))
+          d[i] = 0.f;
+        s1[i] += d[i];
+        s2[i] += d[i] * xh;
+      }
+    }
+  }
+  fold_lanes8(red, s1, s2, partd + ((size_t)b * ntiles + tile) * 2 * C, L,
+              C);
+}
+
+// GroupNorm backward, second pass over a kept raw tensor: dy_raw = inv *
+// (dz * gamma - u1 - xhat * u2), rounded once to bf16.
+template <typename TR, typename TG>
+__global__ void __launch_bounds__(NT) bwd_apply8_kernel(
+    const TR* __restrict__ raw, const TG* __restrict__ grad,
+    const float* __restrict__ gst, const float* __restrict__ gamma,
+    const float* __restrict__ beta, __nv_bfloat16* __restrict__ out, int HW,
+    int C, int G, int R, int mask) {
+  const Lanes8 L(C);
+  if (L.rl >= L.RP) return;
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int r0 = tile * R, r1 = min(HW, r0 + R);
+  const Cols8 p(gst, gamma, beta, b, 8 * L.v, C, G, true);
+  const size_t base = (size_t)b * HW * C + 8 * L.v;
+  for (int r = r0 + L.rl; r < r1; r += L.RP) {
+    float x[8], d[8];
+    load8(raw + base + (size_t)r * C, x);
+    load8(grad + base + (size_t)r * C, d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xh = __fmul_rn(__fsub_rn(x[i], p.m[i]), p.iv[i]);
+      if (mask == MASK_RELU &&
+          !(__fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]) > 0.f))
+        d[i] = 0.f;
+      const float dzg = __fmul_rn(d[i], p.ga[i]);
+      x[i] = __fmul_rn(p.iv[i], __fsub_rn(__fsub_rn(dzg, p.u1[i]),
+                                          __fmul_rn(xh, p.u2[i])));
+    }
+    store8(out + base + (size_t)r * C, x);
+  }
+}
+
+// Image b's per-group (mean, inv) from its per-tile channel sums, folded
+// once: gst[b][g][0..1].
+__global__ void __launch_bounds__(NT) group_stats_kernel(
+    const float* __restrict__ part, int ntiles, int C, int G, float count,
+    float eps, float* __restrict__ gst) {
+  extern __shared__ float sh[];
+  float* csum = sh;               // [2][C]
+  float* gmean = sh + 2 * C;      // [G]
+  float* ginv = gmean + G;        // [G]
+  const int b = blockIdx.x;
+  fold_stats(part + (size_t)b * ntiles * 2 * C, ntiles, C, G, count, eps,
+             csum, gmean, ginv);
+  for (int g = threadIdx.x; g < G; g += NT) {
+    gst[((size_t)b * G + g) * 4] = gmean[g];
+    gst[((size_t)b * G + g) * 4 + 1] = ginv[g];
+  }
+}
+
+// Image b's gradient sums folded once: dgamma, dbeta per image into
+// per_image[2][B][C], and the group terms u1 = sum(dz * gamma) / count,
+// u2 = sum(dz * gamma * xhat) / count into gst[b][g][2..3].
+__global__ void __launch_bounds__(NT) group_grad_kernel(
+    const float* __restrict__ partd, int ntiles, int B, int C, int G,
+    float count, const float* __restrict__ gamma,
+    float* __restrict__ per_image, float* __restrict__ gst) {
+  extern __shared__ float csum[];  // [2][C]
+  const int b = blockIdx.x;
+  const float* pd = partd + (size_t)b * ntiles * 2 * C;
+  for (int c = threadIdx.x; c < C; c += NT) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int t = 0; t < ntiles; ++t) {
+      s1 += pd[(size_t)t * 2 * C + c];
+      s2 += pd[(size_t)t * 2 * C + C + c];
+    }
+    csum[c] = s1;
+    csum[C + c] = s2;
+    per_image[(size_t)b * C + c] = s2;            // dgamma
+    per_image[((size_t)B + b) * C + c] = s1;      // dbeta
+  }
+  __syncthreads();
+  const int cg = C / G;
+  for (int g = threadIdx.x; g < G; g += NT) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = 0; k < cg; ++k) {
+      const int c = g * cg + k;
+      s1 += gamma[c] * csum[c];
+      s2 += gamma[c] * csum[C + c];
+    }
+    gst[((size_t)b * G + g) * 4 + 2] = s1 / count;
+    gst[((size_t)b * G + g) * 4 + 3] = s2 / count;
+  }
+}
+
 // ---- products -----------------------------------------------------------
 //
 // C[m, n] (+ z * zstride) = sum over k in [z * kc, min(K, (z + 1) * kc)) of
@@ -601,11 +891,8 @@ int norm_bwd(const TR* raw, const TG* grad, float* part, const float* gamma,
         q.G, q.R, q.ntiles, q.count, eps, mask2);
   }
   CHECK((int)cudaGetLastError());
-  const size_t n = (size_t)q.C;
-  const int blocks = (int)((n + 255) / 256);
-  fold_kernel<<<blocks, 256, 0, s>>>(per_image, dgamma, q.B, n);
-  fold_kernel<<<blocks, 256, 0, s>>>(per_image + (size_t)q.B * q.C, dbeta,
-                                     q.B, n);
+  fold2_kernel<<<dim3((q.C + 255) / 256, 2), 256, 0, s>>>(
+      per_image, dgamma, dbeta, q.B, q.C);
   return (int)cudaGetLastError();
 }
 
@@ -703,6 +990,152 @@ int tail_bwd_t(const T* y2, const T* w, const float* g2, const float* b2,
                   MASK_RELU, s);
 }
 
+// ---- the bf16 backwards on the tensor cores (fused_gemm.cuh) ------------
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory of the 16-byte statistics passes: red[2][RP][C].
+size_t red8_smem(int C) {
+  return sizeof(float) * 2 * (NT / (C / 8)) * C;
+}
+
+int group_stats(const float* part, int ntiles, int B, int C, int G,
+                float count, float eps, float* gst, cudaStream_t s) {
+  group_stats_kernel<<<B, NT, sizeof(float) * (2 * C + 2 * G), s>>>(
+      part, ntiles, C, G, count, eps, gst);
+  return (int)cudaGetLastError();
+}
+
+// The gradient sums partd folded: the group terms into gst, dgamma and
+// dbeta over the images in order.
+int group_grad(const float* partd, int ntiles, int B, int C, int G,
+               float count, const float* gamma, float* per_image,
+               float* dgamma, float* dbeta, float* gst, cudaStream_t s) {
+  group_grad_kernel<<<B, NT, sizeof(float) * 2 * C, s>>>(
+      partd, ntiles, B, C, G, count, gamma, per_image, gst);
+  CHECK((int)cudaGetLastError());
+  fold2_kernel<<<dim3((C + 255) / 256, 2), 256, 0, s>>>(per_image, dgamma,
+                                                        dbeta, B, C);
+  return (int)cudaGetLastError();
+}
+
+// dw = a^T @ d over every row, in chunks folded in order.
+int weight_grad_tc(const bf16* a, const bf16* d, float* dw_part, float* dw,
+                   long long rows, int Ca, int Cd, int chunks, int kc,
+                   cudaStream_t s) {
+  CHECK(tc::rows_t_times_rows(a, d, dw_part, rows, Ca, Cd, chunks, kc, s));
+  const size_t n = (size_t)Ca * Cd;
+  fold_kernel<<<(int)((n + 255) / 256), 256, 0, s>>>(dw_part, dw, chunks, n);
+  return (int)cudaGetLastError();
+}
+
+// #8 in bf16.  Scratch: ws [B*HW, Cout] f32 where y is kept (store),
+// dyb [B*HW, Cout]; part: the product's sums [B][T][2][Cout] (T 64-row
+// tiles), then the gradient's [B][T'][2][Cout] (T' = T, or the R-row
+// tiles of the kept passes); per_image [2][B][Cout]; dw_part [chunks]
+// [Cin][Cout]; gst [B][G][4].
+int conv_gn_bwd_tc(const bf16* x, const bf16* w, const float* gamma,
+                   const float* beta, const bf16* dy, bf16* dx, float* dw,
+                   float* dgamma, float* dbeta, float* ws, bf16* dyb,
+                   float* part, float* per_image, float* dw_part, float* gst,
+                   int B, int HW, int Cin, int Cout, int G, int R,
+                   int chunks, int kc, int store, float eps, int relu,
+                   cudaStream_t s) {
+  const int T = tc::tiles64(HW);
+  const float count = (float)HW * (float)(Cout / G);
+  const int mask = relu ? MASK_RELU : MASK_NONE;
+  float* partd = part + (size_t)B * T * 2 * Cout;
+  // P1: y = x @ w, its statistics (and y in f32 where it is kept)
+  CHECK(tc::rows_times_w(x, w, B, HW, Cin, Cout, tc::StatsEpi{part, Cout},
+                         tc::Io{nullptr, nullptr, store ? ws : nullptr}, s));
+  CHECK(group_stats(part, T, B, Cout, G, count, eps, gst, s));
+  if (store) {
+    const Rows q(B, HW, Cout, G, R);
+    bwd_stats8_kernel<float, bf16><<<q.grid(), NT, red8_smem(Cout), s>>>(
+        ws, dy, gst, gamma, beta, partd, HW, Cout, G, R, q.ntiles, mask);
+    CHECK((int)cudaGetLastError());
+    CHECK(group_grad(partd, q.ntiles, B, Cout, G, count, gamma, per_image,
+                     dgamma, dbeta, gst, s));
+    bwd_apply8_kernel<float, bf16><<<q.grid(), NT, 0, s>>>(
+        ws, dy, gst, gamma, beta, dyb, HW, Cout, G, R, mask);
+    CHECK((int)cudaGetLastError());
+  } else {
+    // P2, P3: y recomputed for the gradient's sums, then for dy_raw
+    CHECK(tc::rows_times_w(x, w, B, HW, Cin, Cout,
+                           tc::BwdStatsEpi{gst, gamma, beta, partd, Cout, G,
+                                           mask},
+                           tc::Io{dy, nullptr, nullptr}, s));
+    CHECK(group_grad(partd, T, B, Cout, G, count, gamma, per_image, dgamma,
+                     dbeta, gst, s));
+    CHECK(tc::rows_times_w(x, w, B, HW, Cin, Cout,
+                           tc::BwdApplyEpi{gst, gamma, beta, Cout, G, mask},
+                           tc::Io{dy, nullptr, dyb}, s));
+  }
+  // dx = dy_raw @ w^T, dw = x^T @ dy_raw
+  CHECK(tc::rows_times_wt(dyb, w, B, HW, Cout, Cin, tc::StoreEpi{},
+                          tc::Io{nullptr, nullptr, dx}, s));
+  return weight_grad_tc(x, dyb, dw_part, dw, (long long)B * HW, Cin, Cout,
+                        chunks, kc, s);
+}
+
+// #10 in bf16.  Scratch: hb [B*HW, Cm], dy3b [B*HW, Cout], ws2 [B*HW, Cm]
+// f32; part2: y2's sums [B][T2][2][Cm] (R-row tiles), then dh's
+// [B][T][2][Cm]; part3 [2][B][T][2][Cout]; per_image2 [2][B][Cm],
+// per_image3 [2][B][Cout]; dw_part [chunks][Cm][Cout]; gst2 [B][G2][4],
+// gst3 [B][G3][4].  No [B*HW, Cout] f32 workspace: y3 = h @ w is
+// recomputed by each of P1-P3.
+int tail_bwd_tc(const bf16* y2, const bf16* w, const float* g2,
+                const float* b2, const float* g3, const float* b3,
+                const bf16* res, const bf16* dout, bf16* dy2, float* dw,
+                float* dg2, float* db2, float* dg3, float* db3, bf16* dres,
+                bf16* hb, bf16* dy3b, float* ws2, float* part2, float* part3,
+                float* per_image2, float* per_image3, float* dw_part,
+                float* gst2, float* gst3, int B, int HW, int Cm, int Cout,
+                int G2, int G3, int R, int chunks, int kc, float eps,
+                cudaStream_t s) {
+  const int T = tc::tiles64(HW);
+  const Rows q2(B, HW, Cm, G2, R);
+  const float count3 = (float)HW * (float)(Cout / G3);
+  // GN2 recomputed: y2's statistics, then h = relu(GN2(y2)) in bf16
+  stats8_kernel<bf16><<<q2.grid(), NT, red8_smem(Cm), s>>>(y2, part2, HW, Cm,
+                                                           R, q2.ntiles);
+  CHECK((int)cudaGetLastError());
+  CHECK(group_stats(part2, q2.ntiles, B, Cm, G2, q2.count, eps, gst2, s));
+  apply8_kernel<bf16, bf16><<<q2.grid(), NT, 0, s>>>(y2, gst2, g2, b2, hb,
+                                                     HW, Cm, G2, R, 1);
+  CHECK((int)cudaGetLastError());
+  // P1: y3 = h @ w and GN3's statistics
+  CHECK(tc::rows_times_w(hb, w, B, HW, Cm, Cout, tc::StatsEpi{part3, Cout},
+                         tc::Io{nullptr, nullptr, nullptr}, s));
+  CHECK(group_stats(part3, T, B, Cout, G3, count3, eps, gst3, s));
+  // P2: dres behind the residual ReLU and GN3's gradient sums
+  float* partd3 = part3 + (size_t)B * T * 2 * Cout;
+  CHECK(tc::rows_times_w(hb, w, B, HW, Cm, Cout,
+                         tc::BwdStatsEpi{gst3, g3, b3, partd3, Cout, G3,
+                                         MASK_RESID},
+                         tc::Io{dout, res, dres}, s));
+  CHECK(group_grad(partd3, T, B, Cout, G3, count3, g3, per_image3, dg3, db3,
+                   gst3, s));
+  // P3: dy3 rounded to bf16, from dres
+  CHECK(tc::rows_times_w(hb, w, B, HW, Cm, Cout,
+                         tc::BwdApplyEpi{gst3, g3, b3, Cout, G3,
+                                         MASK_NONE},
+                         tc::Io{dres, nullptr, dy3b}, s));
+  CHECK(weight_grad_tc(hb, dy3b, dw_part, dw, (long long)B * HW, Cm, Cout,
+                       chunks, kc, s));
+  // P4: dh = dy3 @ w^T behind h's ReLU (kept in f32) and GN2's sums
+  float* partd2 = part2 + (size_t)B * q2.ntiles * 2 * Cm;
+  CHECK(tc::rows_times_wt(dy3b, w, B, HW, Cout, Cm,
+                          tc::DhEpi{gst2, g2, b2, partd2, Cm, G2},
+                          tc::Io{y2, nullptr, ws2}, s));
+  CHECK(group_grad(partd2, T, B, Cm, G2, q2.count, g2, per_image2, dg2, db2,
+                   gst2, s));
+  // GN2's apply: dy2
+  bwd_apply8_kernel<bf16, float><<<q2.grid(), NT, 0, s>>>(
+      y2, ws2, gst2, g2, b2, dy2, HW, Cm, G2, R, MASK_NONE);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace fused_block
 
@@ -729,17 +1162,19 @@ extern "C" int conv_gn_fwd(const void* x, const void* w, const float* gamma,
   return -1;
 }
 
-// Scratch: ws [B*HW, Cout] f32, dyb [B*HW, Cout] in x's dtype, part [2]
-// x [B][T][2][Cout] f32, per_image [2][B][Cout] f32, dw_part [chunks][Cin]
-// [Cout] f32.  chunks, kc: the weight gradient's row chunks (kc a multiple
-// of 32).
+// f32: scratch ws [B*HW, Cout] f32, dyb [B*HW, Cout], part [2] x [B][T]
+// [2][Cout] f32 (R-row tiles), per_image [2][B][Cout] f32, dw_part
+// [chunks][Cin][Cout] f32; gst and store unused.  bf16: the tensor-core
+// plan, conv_gn_bwd_tc's scratch (ws null unless store).  chunks, kc: the
+// weight gradient's row chunks (kc a multiple of 64).
 extern "C" int conv_gn_bwd(const void* x, const void* w, const float* gamma,
                            const float* beta, const void* dy, void* dx,
                            float* dw, float* dgamma, float* dbeta, float* ws,
                            void* dyb, float* part, float* per_image,
-                           float* dw_part, int B, int HW, int Cin, int Cout,
-                           int G, int R, int chunks, int kc, float eps,
-                           int relu, int dtype, void* stream) {
+                           float* dw_part, float* gst, int B, int HW,
+                           int Cin, int Cout, int G, int R, int chunks,
+                           int kc, int store, float eps, int relu, int dtype,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return conv_gn_bwd_t(
@@ -748,13 +1183,11 @@ extern "C" int conv_gn_bwd(const void* x, const void* w, const float* gamma,
         dgamma, dbeta, ws, static_cast<float*>(dyb), part, per_image, dw_part,
         B, HW, Cin, Cout, G, R, chunks, kc, eps, relu, s);
   if (dtype == 1)
-    return conv_gn_bwd_t(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), gamma, beta,
-        static_cast<const __nv_bfloat16*>(dy),
-        static_cast<__nv_bfloat16*>(dx), dw, dgamma, dbeta, ws,
-        static_cast<__nv_bfloat16*>(dyb), part, per_image, dw_part, B, HW,
-        Cin, Cout, G, R, chunks, kc, eps, relu, s);
+    return conv_gn_bwd_tc(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), gamma, beta,
+        static_cast<const bf16*>(dy), static_cast<bf16*>(dx), dw, dgamma,
+        dbeta, ws, static_cast<bf16*>(dyb), part, per_image, dw_part, gst, B,
+        HW, Cin, Cout, G, R, chunks, kc, store, eps, relu, s);
   return -1;
 }
 
@@ -783,10 +1216,10 @@ extern "C" int tail_fwd(const void* y2, const void* w, const float* g2,
   return -1;
 }
 
-// Scratch: hb [B*HW, Cm] and dy3b [B*HW, Cout] in y2's dtype, ws3
-// [B*HW, Cout] and ws2 [B*HW, Cm] f32, part2 [2][B][T][2][Cm], part3
-// [2][B][T][2][Cout], per_image2 [2][B][Cm], per_image3 [2][B][Cout],
-// dw_part [chunks][Cm][Cout] f32.
+// f32: scratch hb [B*HW, Cm] and dy3b [B*HW, Cout], ws3 [B*HW, Cout] and
+// ws2 [B*HW, Cm] f32, part2 [2][B][T][2][Cm], part3 [2][B][T][2][Cout],
+// per_image2 [2][B][Cm], per_image3 [2][B][Cout], dw_part [chunks][Cm]
+// [Cout] f32; gst2, gst3 unused.  bf16: tail_bwd_tc's scratch (ws3 null).
 extern "C" int tail_bwd(const void* y2, const void* w, const float* g2,
                         const float* b2, const float* g3, const float* b3,
                         const void* res, const void* dout, void* dy2,
@@ -794,9 +1227,9 @@ extern "C" int tail_bwd(const void* y2, const void* w, const float* g2,
                         float* db3, void* dres, void* hb, float* ws3,
                         void* dy3b, float* ws2, float* part2, float* part3,
                         float* per_image2, float* per_image3, float* dw_part,
-                        int B, int HW, int Cm, int Cout, int G2, int G3,
-                        int R, int chunks, int kc, float eps, int dtype,
-                        void* stream) {
+                        float* gst2, float* gst3, int B, int HW, int Cm,
+                        int Cout, int G2, int G3, int R, int chunks, int kc,
+                        float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return tail_bwd_t(
@@ -807,14 +1240,12 @@ extern "C" int tail_bwd(const void* y2, const void* w, const float* g2,
         ws3, static_cast<float*>(dy3b), ws2, part2, part3, per_image2,
         per_image3, dw_part, B, HW, Cm, Cout, G2, G3, R, chunks, kc, eps, s);
   if (dtype == 1)
-    return tail_bwd_t(
-        static_cast<const __nv_bfloat16*>(y2),
-        static_cast<const __nv_bfloat16*>(w), g2, b2, g3, b3,
-        static_cast<const __nv_bfloat16*>(res),
-        static_cast<const __nv_bfloat16*>(dout),
-        static_cast<__nv_bfloat16*>(dy2), dw, dg2, db2, dg3, db3,
-        static_cast<__nv_bfloat16*>(dres), static_cast<__nv_bfloat16*>(hb),
-        ws3, static_cast<__nv_bfloat16*>(dy3b), ws2, part2, part3, per_image2,
-        per_image3, dw_part, B, HW, Cm, Cout, G2, G3, R, chunks, kc, eps, s);
+    return tail_bwd_tc(
+        static_cast<const bf16*>(y2), static_cast<const bf16*>(w), g2, b2, g3,
+        b3, static_cast<const bf16*>(res), static_cast<const bf16*>(dout),
+        static_cast<bf16*>(dy2), dw, dg2, db2, dg3, db3,
+        static_cast<bf16*>(dres), static_cast<bf16*>(hb),
+        static_cast<bf16*>(dy3b), ws2, part2, part3, per_image2, per_image3,
+        dw_part, gst2, gst3, B, HW, Cm, Cout, G2, G3, R, chunks, kc, eps, s);
   return -1;
 }

@@ -38,6 +38,18 @@ to the plain versions.  ``conv_gn_fwd_launches``,
 ``conv_gn_bwd_launches``, ``tail_fwd_launches`` and
 ``tail_bwd_launches`` count calls of the four kernel entry points
 (each launches several grids), and nothing else.
+
+The bf16 backwards run on one tensor-core product body
+(``csrc/fused_gemm.cuh``: wgmma fed by TMA, the GroupNorm work in its
+epilogue).  What bounded them was bytes: f32 workspaces of the product
+written once and read three times.  Their pass plans (``bwd_plan``)
+write an f32 intermediate only where that takes less time than
+recomputing it on the tensor cores from its bf16 input: the tail keeps
+no ``[B*HW, C_out]`` f32 workspace, and ``conv_gn_bwd`` recomputes its
+product only where the input is narrow (``_store_y``: on ResNet-50's
+path, the two calls that read 64 channels).  TMA needs 16-byte rows,
+so a bf16 CUDA backward takes channel counts that are multiples of 8
+(the forwards, without TMA, take any).
 """
 
 from __future__ import annotations
@@ -54,12 +66,22 @@ MAX_CHANNELS = 2048
 #: elements of a statistics pass's row tile
 TILE_ELEMS = 16384
 #: rows of the weight gradient's chunks are a multiple of this (the
-#: products' depth step)
-K_STEP = 32
+#: tensor-core products' depth step; the f32 chain's divides it)
+K_STEP = 64
 #: blocks the weight gradient's chunked product aims for (4 per SM)
 DW_BLOCKS = 528
 #: tile edge of the kernels' products
 GEMM_TILE = 64
+#: rows of a tensor-core product's tile (one wgmma M); a tile lies inside
+#: one image
+ROW_TILE = 64
+#: operations the tensor-core products do in the time the card moves one
+#: byte (about 330 TFLOP/s beside 3.35 TB/s): where #8's two plans, timed
+#: at ResNet-50's 20 calls on an H100, trade places
+PRODUCT_FLOPS_PER_BYTE = 100
+#: bf16 channels come in 16-byte vectors (TMA's row stride, the passes'
+#: loads)
+BF16_CHANNEL_STEP = 8
 
 #: forward kernel launches of ``fused_conv1x1_gn`` since the last reset
 conv_gn_fwd_launches = 0
@@ -219,7 +241,9 @@ def _check(rows, w, params, groups_by_width):
             raise ValueError(f"channels={c} not divisible by groups={g}")
 
 
-def _check_kernel_inputs(*tensors):
+def _check_kernel_inputs(*tensors, tma=False):
+    """Refuse what the kernels do not take; ``tma``: the bf16 backwards,
+    whose operands TMA brings in, also need 16-byte rows."""
     for t in tensors:
         if t.shape[-1] > MAX_CHANNELS:
             raise ValueError(f"the CUDA kernels take at most {MAX_CHANNELS} "
@@ -227,6 +251,13 @@ def _check_kernel_inputs(*tensors):
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels need contiguous [B, HW, C] "
                              "inputs (channels-last memory)")
+        if tma and t.dtype == torch.bfloat16 and (
+                t.shape[-1] % BF16_CHANNEL_STEP or t.data_ptr() % 16):
+            raise ValueError(
+                f"the bf16 CUDA backwards need channel counts that are "
+                f"multiples of {BF16_CHANNEL_STEP} and 16-byte aligned "
+                f"rows (TMA); got {t.shape[-1]} channels at address "
+                f"{t.data_ptr():#x}")
 
 
 def _rows_per_tile(hw: int, c: int) -> int:
@@ -243,6 +274,103 @@ def _dw_chunks(m: int, k: int, n: int) -> tuple[int, int]:
     chunks = max(1, min(-(-DW_BLOCKS // tiles), -(-k // 512)))
     rows = -(-(-(-k // chunks)) // K_STEP) * K_STEP
     return -(-k // rows), rows
+
+
+def _store_y(cin: int, cout: int) -> bool:
+    """Whether #8's bf16 plan keeps the recomputed product ``y`` in f32
+    between its passes: one f32 write and two reads (12 ``cout`` bytes a
+    row) against computing it twice more from bf16 ``x``: two more reads
+    (4 ``cin`` bytes a row) and two more products (4 ``cin cout``
+    operations a row, at ``PRODUCT_FLOPS_PER_BYTE``)."""
+    return 4 * cin + 4 * cin * cout / PRODUCT_FLOPS_PER_BYTE >= 12 * cout
+
+
+def bwd_plan(kind: str, b: int, hw: int, cin: int, cout: int, groups,
+             dtype, store: bool | None = None) -> dict:
+    """The pass plan of one backward kernel call: ``kind`` "conv" (``cin``
+    -> ``cout``, ``groups`` an int) or "tail" (``cin`` = C_m, ``groups``
+    = (G2, G3)).  Returns ``store`` (``y`` kept in f32), ``rows`` and
+    ``tiles`` (the row tiles of the passes outside a product),
+    ``row_tiles`` (the products' 64-row tiles of an image), the weight
+    gradient's ``chunks`` and ``kc`` rows each, and ``scratch``: ``(name,
+    shape, dtype)`` of every buffer the kernel takes, in the C order.
+    f32 keeps the FMA chain and its workspaces; bf16 is the tensor-core
+    plan (``csrc/fused_block.cu``: ``conv_gn_bwd_tc``, ``tail_bwd_tc``).
+    ``store`` overrides the byte rule for a bf16 conv (to time both
+    plans); None follows it."""
+    f32 = torch.float32
+    bf16 = dtype == torch.bfloat16
+    m = b * hw
+    chunks, kc = _dw_chunks(cin, m, cout)
+    row_tiles = -(-hw // ROW_TILE)
+    if kind == "conv":
+        store = (_store_y(cin, cout) if store is None else store) \
+            if bf16 else True
+        rows = _rows_per_tile(hw, cout)
+        tiles = -(-hw // rows)
+        if bf16:
+            grad_tiles = tiles if store else row_tiles
+            scratch = [("ws", (b, hw, cout), f32) if store else None,
+                       ("dyb", (b, hw, cout), dtype),
+                       ("part", (b * (row_tiles + grad_tiles) * 2 * cout,),
+                        f32),
+                       ("per_image", (2, b, cout), f32),
+                       ("dw_part", (chunks, cin, cout), f32),
+                       ("gstats", (b, groups, 4), f32)]
+        else:
+            scratch = [("ws", (b, hw, cout), f32),
+                       ("dyb", (b, hw, cout), dtype),
+                       ("part", (2, b, tiles, 2, cout), f32),
+                       ("per_image", (2, b, cout), f32),
+                       ("dw_part", (chunks, cin, cout), f32), None]
+    elif kind == "tail":
+        if store is not None:
+            raise ValueError("the tail has one plan; store must be None")
+        cm = cin
+        g2, g3 = groups
+        store = False
+        if bf16:
+            rows = _rows_per_tile(hw, cm)
+            tiles = -(-hw // rows)
+            scratch = [("hb", (b, hw, cm), dtype), None,
+                       ("dy3b", (b, hw, cout), dtype),
+                       ("ws2", (b, hw, cm), f32),
+                       ("part2", (b * (tiles + row_tiles) * 2 * cm,), f32),
+                       ("part3", (2, b, row_tiles, 2, cout), f32),
+                       ("per_image2", (2, b, cm), f32),
+                       ("per_image3", (2, b, cout), f32),
+                       ("dw_part", (chunks, cm, cout), f32),
+                       ("gstats2", (b, g2, 4), f32),
+                       ("gstats3", (b, g3, 4), f32)]
+        else:
+            rows = _rows_per_tile(hw, max(cm, cout))
+            tiles = -(-hw // rows)
+            scratch = [("hb", (b, hw, cm), dtype),
+                       ("ws3", (b, hw, cout), f32),
+                       ("dy3b", (b, hw, cout), dtype),
+                       ("ws2", (b, hw, cm), f32),
+                       ("part2", (2, b, tiles, 2, cm), f32),
+                       ("part3", (2, b, tiles, 2, cout), f32),
+                       ("per_image2", (2, b, cm), f32),
+                       ("per_image3", (2, b, cout), f32),
+                       ("dw_part", (chunks, cm, cout), f32), None, None]
+    else:
+        raise ValueError(f"kind must be 'conv' or 'tail'; got {kind!r}")
+    return {"store": store, "rows": rows, "tiles": tiles,
+            "row_tiles": row_tiles, "chunks": chunks, "kc": kc,
+            "scratch": scratch}
+
+
+def _scratch(plan, device):
+    """The plan's buffers, in the C order (None where the plan does
+    without one); keep them alive until the launch is queued."""
+    return [None if e is None else torch.empty(e[1], dtype=e[2],
+                                               device=device)
+            for e in plan["scratch"]]
+
+
+def _ptrs(tensors):
+    return [0 if t is None else t.data_ptr() for t in tensors]
 
 
 def _launch(fn, name, device, *args):
@@ -275,30 +403,24 @@ def _conv_gn_fwd_kernel(x3, w, gamma, beta, *, groups, eps, relu):
     return y
 
 
-def _conv_gn_bwd_kernel(x3, w, gamma, beta, dy3, *, groups, eps, relu):
+def _conv_gn_bwd_kernel(x3, w, gamma, beta, dy3, *, groups, eps, relu,
+                        store=None):
     global conv_gn_bwd_launches
-    _check_kernel_inputs(x3, w, gamma, beta, dy3)
+    _check_kernel_inputs(x3, w, gamma, beta, dy3, tma=True)
     b, hw, cin = x3.shape
     cout = w.shape[1]
-    rows = _rows_per_tile(hw, cout)
-    tiles = -(-hw // rows)
-    chunks, kc = _dw_chunks(cin, b * hw, cout)
+    plan = bwd_plan("conv", b, hw, cin, cout, groups, x3.dtype, store)
     dev = x3.device
     dx = torch.empty_like(x3)
     dw = _f32((cin, cout), dev)
     dgamma, dbeta = _f32((cout,), dev), _f32((cout,), dev)
-    ws = _f32((b, hw, cout), dev)
-    dyb = torch.empty((b, hw, cout), dtype=x3.dtype, device=dev)
-    part = _f32((2, b, tiles, 2, cout), dev)
-    per_image = _f32((2, b, cout), dev)
-    dw_part = _f32((chunks, cin, cout), dev)
+    scratch = _scratch(plan, dev)
     _launch(_library().conv_gn_bwd, "conv_gn_bwd", dev,
             x3.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             dy3.data_ptr(), dx.data_ptr(), dw.data_ptr(), dgamma.data_ptr(),
-            dbeta.data_ptr(), ws.data_ptr(), dyb.data_ptr(),
-            part.data_ptr(), per_image.data_ptr(), dw_part.data_ptr(), b,
-            hw, cin, cout, groups, rows, chunks, kc, float(eps), int(relu),
-            _DTYPES[x3.dtype])
+            dbeta.data_ptr(), *_ptrs(scratch), b, hw, cin, cout, groups,
+            plan["rows"], plan["chunks"], plan["kc"], int(plan["store"]),
+            float(eps), int(relu), _DTYPES[x3.dtype])
     conv_gn_bwd_launches += 1
     return dx, dw, dgamma, dbeta
 
@@ -328,34 +450,23 @@ def _tail_fwd_kernel(y2, w, g2, b2, g3, b3, res, *, groups2, groups3, eps):
 def _tail_bwd_kernel(y2, w, g2, b2, g3, b3, res, dout, *, groups2, groups3,
                      eps):
     global tail_bwd_launches
-    _check_kernel_inputs(y2, w, g2, b2, g3, b3, res, dout)
+    _check_kernel_inputs(y2, w, g2, b2, g3, b3, res, dout, tma=True)
     b, hw, cm = y2.shape
     cout = w.shape[1]
-    rows = _rows_per_tile(hw, max(cm, cout))
-    tiles = -(-hw // rows)
-    chunks, kc = _dw_chunks(cm, b * hw, cout)
+    plan = bwd_plan("tail", b, hw, cm, cout, (groups2, groups3), y2.dtype)
     dev = y2.device
     dy2, dres = torch.empty_like(y2), torch.empty_like(res)
     dw = _f32((cm, cout), dev)
     dg2, db2 = _f32((cm,), dev), _f32((cm,), dev)
     dg3, db3 = _f32((cout,), dev), _f32((cout,), dev)
-    hb = torch.empty_like(y2)
-    ws3 = _f32((b, hw, cout), dev)
-    dy3b = torch.empty_like(res)
-    ws2 = _f32((b, hw, cm), dev)
-    part2, part3 = (_f32((2, b, tiles, 2, c), dev) for c in (cm, cout))
-    per_image2, per_image3 = _f32((2, b, cm), dev), _f32((2, b, cout), dev)
-    dw_part = _f32((chunks, cm, cout), dev)
+    scratch = _scratch(plan, dev)
     _launch(_library().tail_bwd, "tail_bwd", dev,
             y2.data_ptr(), w.data_ptr(), g2.data_ptr(), b2.data_ptr(),
             g3.data_ptr(), b3.data_ptr(), res.data_ptr(), dout.data_ptr(),
             dy2.data_ptr(), dw.data_ptr(), dg2.data_ptr(), db2.data_ptr(),
-            dg3.data_ptr(), db3.data_ptr(), dres.data_ptr(), hb.data_ptr(),
-            ws3.data_ptr(), dy3b.data_ptr(), ws2.data_ptr(),
-            part2.data_ptr(), part3.data_ptr(), per_image2.data_ptr(),
-            per_image3.data_ptr(), dw_part.data_ptr(), b, hw, cm, cout,
-            groups2, groups3, rows, chunks, kc, float(eps),
-            _DTYPES[y2.dtype])
+            dg3.data_ptr(), db3.data_ptr(), dres.data_ptr(), *_ptrs(scratch),
+            b, hw, cm, cout, groups2, groups3, plan["rows"], plan["chunks"],
+            plan["kc"], float(eps), _DTYPES[y2.dtype])
     tail_bwd_launches += 1
     return dy2, dw, dg2, db2, dg3, db3, dres
 
@@ -368,9 +479,9 @@ def _library():
     lib = _build.load("fused_block")
     signatures = {
         "conv_gn_fwd": [ptr] * 7 + [int_] * 6 + [f32, int_, int_, ptr],
-        "conv_gn_bwd": [ptr] * 14 + [int_] * 8 + [f32, int_, int_, ptr],
+        "conv_gn_bwd": [ptr] * 15 + [int_] * 9 + [f32, int_, int_, ptr],
         "tail_fwd": [ptr] * 12 + [int_] * 7 + [f32, int_, ptr],
-        "tail_bwd": [ptr] * 24 + [int_] * 9 + [f32, int_, ptr],
+        "tail_bwd": [ptr] * 26 + [int_] * 9 + [f32, int_, ptr],
     }
     for name, args in signatures.items():
         getattr(lib, name).argtypes = args

@@ -39,6 +39,12 @@ def test_both_forwards_include_the_shared_forward_header(name):
     assert '#include "flash_fwd_mma.cuh"' in text
 
 
+def test_the_fused_block_includes_the_tensor_core_product_header():
+    assert "fused_gemm.cuh" in HEADERS
+    text = (_build._CSRC / "fused_block.cu").read_text()
+    assert '#include "fused_gemm.cuh"' in text
+
+
 @pytest.mark.parametrize("name", SOURCES)
 def test_an_unchanged_tree_gives_the_same_path(csrc, tmp_path, monkeypatch,
                                                name):
@@ -169,3 +175,71 @@ def test_smoke_reads_registers_and_spills_per_instantiation(kernel, want):
     import chip_smoke
 
     assert chip_smoke._kernel_resources(PTXAS_LOG, kernel) == want
+
+
+# an excerpt of nvcc -Xptxas -v for fused_block.cu (sm_90a): the bf16
+# backwards' product body, fused_block::tc::gemm_kernel<BN, NWG, A_MN,
+# B_MN, Epi>, at four of its instantiations
+FUSED_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN11fused_block2tc11gemm_kernelILi128ELi2ELb0ELb0ENS0_5DhEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN11fused_block2tc11gemm_kernelILi128ELi2ELb0ELb0ENS0_5DhEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_
+    64 bytes stack frame, 60 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 96 registers, used 4 barriers, 64 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN11fused_block2tc11gemm_kernelILi64ELi2ELb0ELb0ENS0_8StoreEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN11fused_block2tc11gemm_kernelILi64ELi2ELb0ELb0ENS0_8StoreEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 58 registers, used 4 barriers
+ptxas info    : Compiling entry function '_ZN11fused_block2tc11gemm_kernelILi128ELi1ELb0ELb1ENS0_11BwdStatsEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN11fused_block2tc11gemm_kernelILi128ELi1ELb0ELb1ENS0_11BwdStatsEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 108 registers, used 2 barriers
+ptxas info    : Compiling entry function '_ZN11fused_block2tc11gemm_kernelILi128ELi1ELb1ELb1ENS0_8ChunkEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN11fused_block2tc11gemm_kernelILi128ELi1ELb1ELb1ENS0_8ChunkEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 3 barriers
+"""
+
+
+def test_smoke_reads_the_fused_product_body_per_instantiation():
+    import chip_smoke
+
+    def info(registers, spill):
+        return {"registers": registers, "spill_stores": spill,
+                "spill_loads": spill}
+
+    assert chip_smoke._kernel_resources(FUSED_PTXAS_LOG, "gemm_kernel") == {
+        "BwdStatsEpi_n128_w1": info(108, 0),
+        "ChunkEpi_n128_w1": info(90, 0),
+        "DhEpi_n128_w2": info(96, 60),
+        "StoreEpi_n64_w2": info(58, 0)}
+    # the flash patterns find nothing here, nor the body's in theirs
+    assert chip_smoke._kernel_resources(FUSED_PTXAS_LOG, "fwd_kernel") == {}
+    assert chip_smoke._kernel_resources(PTXAS_LOG, "gemm_kernel") == {}
+
+
+def test_smoke_ranges_what_each_fused_grid_was_launched_with():
+    import chip_smoke
+
+    timing = {("tail", 1): {"bwd_grids": {
+                  "StatsEpi_n128_w2": {"ms": 0.1, "smem": 99328,
+                                       "registers": 90},
+                  "fold_kernel": {"ms": 0.01}}},
+              ("tail", 2): {"bwd_grids": {
+                  "StatsEpi_n128_w2": {"ms": 0.2, "smem": 132096,
+                                       "registers": 90}}}}
+    assert chip_smoke._launched(timing, "tail", {1: 4, 2: 1}) == {
+        "StatsEpi_n128_w2": {"smem": [99328, 132096], "registers": [90, 90]}}
+
+
+def test_smoke_weighs_both_conv_plans_by_launches():
+    import chip_smoke
+
+    timing = {("conv", "a"): {"bwd_plan": "store", "bwd_ms": 1.0,
+                              "bwd_other_plan_ms": 2.0},
+              ("conv", "b"): {"bwd_plan": "store", "bwd_ms": 4.0,
+                              "bwd_other_plan_ms": 2.0},
+              ("conv", "c"): {"bwd_plan": "recompute", "bwd_ms": 0.5,
+                              "bwd_other_plan_ms": 0.75}}
+    assert chip_smoke._plan_means(timing, {"a": 3, "b": 1, "c": 2}) == {
+        "store": {"calls": 4, "chosen_ms": 1.75, "other_ms": 2.0},
+        "recompute": {"calls": 2, "chosen_ms": 0.5, "other_ms": 0.75}}

@@ -328,6 +328,21 @@ FB_TAIL_KEYS = [(4, 3136, 64, 256, 32, 32), (4, 196, 256, 1024, 32, 32),
 @pytest.mark.parametrize("kind,key", [("conv", k) for k in FB_CONV_KEYS]
                          + [("tail", k) for k in FB_TAIL_KEYS])
 def test_fused_block_kernels_match_plain(card, kind, key, dtype):
+    _fused_block_kernels_match_plain(kind, key, dtype)
+
+
+# an odd count of 64-row tiles over the images: the bf16 products' last
+# block pairs a tile with none (its second warpgroup reads zeros and
+# writes nothing)
+@pytest.mark.parametrize("kind,key", [("conv", (3, 37, 40, 24, 8, True)),
+                                      ("conv", (3, 37, 104, 24, 8, True)),
+                                      ("tail", (3, 37, 24, 40, 8, 8))])
+def test_fused_block_kernels_match_plain_at_an_odd_tile_count(card, kind,
+                                                              key):
+    _fused_block_kernels_match_plain(kind, key, "bfloat16")
+
+
+def _fused_block_kernels_match_plain(kind, key, dtype):
     import chip_smoke as cs
     from distkeras_tpu_torch.ops import fused_block as fb
 
@@ -361,6 +376,41 @@ def test_fused_block_kernels_match_plain(card, kind, key, dtype):
         assert a.shape == w.shape and a.dtype == w.dtype, name
         assert bool(torch.isfinite(a).all()), name
         assert _ratio(a, w) <= cs._fb_tol(name, dtype), (name, _ratio(a, w))
+
+
+# bf16 #8 and #10 at the path's widths (batch 2), each plan of #8 (y kept
+# in f32: Cin > 3 Cout; y recomputed), and the odd widths off every tile
+# edge; inputs as chip_smoke.py's phase 6 draws them
+FB_RERUN_KEYS = [("conv", (2, 3136, 256, 64, 32, True)),
+                 ("conv", (2, 784, 256, 512, 32, False)),
+                 ("conv", (2, 37, 104, 24, 8, True)),
+                 ("conv", (2, 37, 40, 24, 8, True)),
+                 ("tail", (2, 3136, 64, 256, 32, 32)),
+                 ("tail", (2, 49, 512, 2048, 32, 32)),
+                 ("tail", (2, 37, 24, 40, 8, 8))]
+
+
+@pytest.mark.parametrize("kind,key", FB_RERUN_KEYS)
+def test_bf16_fused_backward_kernels_rerun_bit_equal(card, kind, key):
+    """Two runs of the bf16 #8 or #10 on the same inputs give the same
+    bits: every sum (the products' depth, the statistics' rows and tiles,
+    the weight gradient's chunks) is taken in a fixed order, without
+    atomics, whichever pass plan the call takes."""
+    import chip_smoke as cs
+    from distkeras_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(key) + 3)
+    if kind == "conv":
+        args = cs._conv_gn_case(fb, torch, gen, key, torch.bfloat16)
+        kw, fn = dict(groups=key[4], relu=key[5]), fb.conv1x1_gn_bwd
+    else:
+        args = cs._tail_case(fb, torch, gen, key, torch.bfloat16)
+        kw, fn = dict(groups2=key[4], groups3=key[5]), fb.bottleneck_tail_bwd
+    first, second = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 def _fused_cfg(**kw):

@@ -291,6 +291,123 @@ def test_incoming_gradient_in_another_layout_is_copied_once():
     np.testing.assert_allclose(dx.numpy(), dx5.numpy(), rtol=1e-6, atol=1e-6)
 
 
+# ---- the bf16 backwards' pass plans (ops/fused_block.py bwd_plan) ------
+
+
+def _resnet50_calls(batch=256):
+    """The fused calls of one ResNet-50 step (stages 3-4-6-3, widths 64
+    to 512, 224 px with the s2d stem: 56x56 into the first stage; the
+    stride in each first block's 3x3 conv), as ``fusion="pallas_block"``
+    makes them: conv keys (B, HW, Cin, Cout, G, relu), tail keys (B, HW,
+    Cm, Cout, G2, G3), with repeats."""
+    conv, tail = [], []
+    cin, hw = 64, 56 * 56
+    for i, (blocks, width) in enumerate(zip((3, 4, 6, 3),
+                                            (64, 128, 256, 512))):
+        out_hw = hw if i == 0 else hw // 4
+        for j in range(blocks):
+            conv.append((batch, hw if j == 0 else out_hw, cin, width, 32,
+                         True))
+            if j == 0:
+                conv.append((batch, out_hw, cin, 4 * width, 32, False))
+            tail.append((batch, out_hw, width, 4 * width, 32, 32))
+            cin = 4 * width
+        hw = out_hw
+    return conv, tail
+
+
+CONV_CALLS, TAIL_CALLS = _resnet50_calls()
+
+
+def test_the_path_has_20_conv_and_16_tail_calls():
+    assert len(CONV_CALLS) == 20 and len(TAIL_CALLS) == 16
+    assert len(set(CONV_CALLS)) == 12 and len(set(TAIL_CALLS)) == 4
+    # the twelve conv1 calls of the non-first blocks read 4x their width
+    wide = [k for k in CONV_CALLS if k[2] == 4 * k[3]]
+    assert len(wide) == 12
+
+
+def _check_chunks(plan, rows):
+    chunks, kc = plan["chunks"], plan["kc"]
+    assert kc % fb.K_STEP == 0 and fb.K_STEP == 64
+    assert (chunks - 1) * kc < rows <= chunks * kc
+
+
+@pytest.mark.parametrize("key", CONV_CALLS)
+def test_conv_plan_keeps_y_unless_recomputing_takes_less_time(key):
+    """#8 in bf16 keeps the product y in f32 (one write and two reads, 12
+    Cout bytes a row) unless recomputing it twice more from bf16 x takes
+    less time (4 Cin bytes a row and two products of 2 Cin Cout
+    operations, at 100 operations a byte): on this path it recomputes
+    only at the two calls that read 64 channels (64 -> 64 and the
+    projection 64 -> 256)."""
+    b, hw, cin, cout, g, relu = key
+    plan = fb.bwd_plan("conv", b, hw, cin, cout, g, torch.bfloat16)
+    rows = 4 * cin + 4 * cin * cout / fb.PRODUCT_FLOPS_PER_BYTE
+    assert plan["store"] == (rows >= 12 * cout) == (cin > 64)
+    scratch = {e[0]: e[1:] for e in plan["scratch"] if e is not None}
+    assert [e is None for e in plan["scratch"]] == [not plan["store"]] \
+        + [False] * 5
+    if plan["store"]:
+        assert scratch["ws"] == ((b, hw, cout), torch.float32)
+    assert plan["row_tiles"] == -(-hw // fb.ROW_TILE)
+    grad_tiles = plan["tiles"] if plan["store"] else plan["row_tiles"]
+    assert scratch["part"] == (
+        (b * (plan["row_tiles"] + grad_tiles) * 2 * cout,), torch.float32)
+    assert scratch["gstats"] == ((b, g, 4), torch.float32)
+    _check_chunks(plan, b * hw)
+
+
+@pytest.mark.parametrize("key", TAIL_CALLS)
+def test_tail_plan_has_no_f32_workspace_of_the_output_width(key):
+    """#10 in bf16 recomputes y3 = h @ w in each pass that needs it
+    instead of writing it as an f32 [B*HW, Cout] workspace (16 Cout bytes
+    a row against Cout / 2 to reread h), and keeps dh in f32 (4 Cm bytes
+    a row against 2 Cout to recompute)."""
+    b, hw, cm, cout, g2, g3 = key
+    plan = fb.bwd_plan("tail", b, hw, cm, cout, (g2, g3), torch.bfloat16)
+    f32 = [e for e in plan["scratch"]
+           if e is not None and e[2] == torch.float32]
+    assert all(int(np.prod(e[1])) < b * hw * cout for e in f32)
+    assert ("ws2", (b, hw, cm), torch.float32) in plan["scratch"]
+    assert plan["scratch"][1] is None          # the C order's ws3 slot
+    # the f32 chain keeps its workspace
+    f32_plan = fb.bwd_plan("tail", b, hw, cm, cout, (g2, g3), torch.float32)
+    assert ("ws3", (b, hw, cout), torch.float32) in f32_plan["scratch"]
+    _check_chunks(plan, b * hw)
+
+
+def test_plan_rejects_an_unknown_kind():
+    with pytest.raises(ValueError, match="kind"):
+        fb.bwd_plan("head", 2, 4, 8, 8, 4, torch.bfloat16)
+
+
+def test_cuda_width_check_names_the_16_byte_rows():
+    """A bf16 width off the 16-byte rows of TMA is refused for a CUDA
+    backward before any launch; the check reads the tensor, so a CPU
+    tensor shows it too.  The forwards do not use TMA and take it."""
+    odd = torch.zeros(2, 4, 12, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fb._check_kernel_inputs(odd, tma=True)
+    fb._check_kernel_inputs(odd)
+    fb._check_kernel_inputs(torch.zeros(2, 4, 24, dtype=torch.bfloat16),
+                            torch.zeros(2, 4, 12), tma=True)
+
+
+@pytest.mark.parametrize("store", [True, False])
+def test_conv_plan_can_be_forced_either_way(store):
+    """Both bf16 plans of #8 exist at any shape (the smoke times the one
+    the byte rule does not choose); f32 always keeps y; the tail has one
+    plan."""
+    key = (2, 49, 64, 256, 32)        # the rule recomputes here
+    plan = fb.bwd_plan("conv", *key, torch.bfloat16, store)
+    assert plan["store"] is store
+    assert (plan["scratch"][0] is None) is not store
+    assert fb.bwd_plan("conv", *key, torch.float32, store)["store"]
+    with pytest.raises(ValueError, match="one plan"):
+        fb.bwd_plan("tail", 2, 49, 64, 256, (32, 32), torch.bfloat16, store)
+
+
 # ---- the fused block against the unfused one, inside the port ---------
 
 
