@@ -10,7 +10,7 @@ Phases, in order; any failure exits nonzero and prints no result:
    per source, all started together), print the card's name and power
    limit, and read each flash forward and backward kernel's registers
    and spill bytes per instantiation from the compiler's report, and
-   those of the fused bf16 backwards' product body;
+   those of the fused bf16 kernels' product body;
 2. hold each kernel against its plain PyTorch version on the card at
    the paths' shapes (and a few more: the flash backward also at
    [8, 12, 1024, 128] bf16 causal, where its registers bind), with the
@@ -56,11 +56,13 @@ Phases, in order; any failure exits nonzero and prints no result:
 6. the fused ResNet path: (a) hold the four fused-block kernels against
    their plain versions at every call shape of ResNet-50's
    ``fusion="pallas_block"`` path at batch 256 (12 fused-conv and 4 tail
-   shapes, bf16 and f32; ``TOL_FB*``; the bf16 backwards run twice and
-   must be bit-equal), (b) time each per launch against
-   its bound, its plain version and the torch spelling of the same region
-   as ``fusion="none"`` runs it, with the bf16 backwards' device time by
-   grid and #8 also under the pass plan its byte rule did not choose, (c) train ``scripts/perf_fused_e2e.py``'s
+   shapes, bf16 and f32; ``TOL_FB*``; the bf16 kernels run twice and
+   must be bit-equal), (a') the bf16 forwards under both pass plans at
+   one shape per stage must be bit-equal, (b) time each per launch
+   against its bound, its plain version and the torch spelling of the
+   same region as ``fusion="none"`` runs it, with each bf16 kernel's
+   device time by grid and #7, #8 and #9 also under the pass plan their
+   rules did not choose, (c) train ``scripts/perf_fused_e2e.py``'s
    configuration (ResNet-50, 224 px, s2d stem, bf16, momentum at lr 0.1,
    batch 256) through ``SingleTrainer`` for 2 epochs of 4 steps: exactly
    20/20/16/16 launches of the four kernels per step, finite losses, the
@@ -215,12 +217,16 @@ PTXAS_ROWS = {"flash_attention_fwd": ("flash_attention_fwd", "fwd_kernel"),
               "flash_hop_fwd": ("flash_hop", "hop_fwd_kernel"),
               "flash_hop_bwd_dq": ("flash_hop", "hop_dq_kernel"),
               "flash_hop_bwd_dkv": ("flash_hop", "hop_dkv_kernel"),
+              "conv1x1_gn_fwd": ("fused_block", "gemm_kernel"),
               "conv1x1_gn_bwd": ("fused_block", "gemm_kernel"),
+              "bottleneck_tail_fwd": ("fused_block", "gemm_kernel"),
               "bottleneck_tail_bwd": ("fused_block", "gemm_kernel")}
-# the product body's epilogues each bf16 fused backward runs (the first
+# the product body's epilogues each bf16 fused kernel runs (the first
 # field of _kernel_resources's keys)
-PTXAS_EPILOGUES = {"conv1x1_gn_bwd": ("StatsEpi", "BwdStatsEpi",
+PTXAS_EPILOGUES = {"conv1x1_gn_fwd": ("StatsEpi", "ApplyEpi"),
+                   "conv1x1_gn_bwd": ("StatsEpi", "BwdStatsEpi",
                                       "BwdApplyEpi", "StoreEpi", "ChunkEpi"),
+                   "bottleneck_tail_fwd": ("StatsEpi", "ApplyEpi"),
                    "bottleneck_tail_bwd": ("StatsEpi", "BwdStatsEpi",
                                            "BwdApplyEpi", "DhEpi",
                                            "ChunkEpi")}
@@ -1504,16 +1510,16 @@ def _hold(kind, key, dname, names, got, want, torch):
 
 
 def _rerun(row, first, again, torch):
-    """A bf16 backward run twice on the same inputs must give the same
-    bits (no atomics; every sum in a fixed order)."""
+    """A bf16 forward and backward run twice on the same inputs must give
+    the same bits (no atomics; every sum in a fixed order)."""
     if again is None:
         return
     row["rerun_bit_equal"] = all(torch.equal(a, b)
                                  for a, b in zip(first, again))
-    print(f"fused_block {row['kernel']} {row['key']} bf16 backward rerun "
-          f"bit-equal: {row['rerun_bit_equal']}")
+    print(f"fused_block {row['kernel']} {row['key']} bf16 forward and "
+          f"backward rerun bit-equal: {row['rerun_bit_equal']}")
     if not row["rerun_bit_equal"]:
-        raise SystemExit(f"the bf16 {row['kernel']} backward is not "
+        raise SystemExit(f"the bf16 {row['kernel']} kernels are not "
                          f"deterministic at {row['key']}")
 
 
@@ -1532,13 +1538,14 @@ def _check_fused(fb, torch, conv_keys, tail_keys):
             want = (fb.conv1x1_gn_fwd_reference(x, w, gamma, beta, **kw),
                     *fb.conv1x1_gn_bwd_reference(x, w, gamma, beta, dy,
                                                  **kw))
-            again = (fb.conv1x1_gn_bwd(x, w, gamma, beta, dy, **kw)
+            again = ((fb.conv1x1_gn_fwd(x, w, gamma, beta, **kw),
+                      *fb.conv1x1_gn_bwd(x, w, gamma, beta, dy, **kw))
                      if dname == "bfloat16" else None)
             torch.cuda.synchronize()
             rows.append(_hold("conv1x1_gn", key, dname,
                               ("y", "dx", "dw", "dgamma", "dbeta"), got,
                               want, torch))
-            _rerun(rows[-1], got[1:], again, torch)
+            _rerun(rows[-1], got, again, torch)
             del x, w, dy, got, want, again
     for key in tail_keys:
         for dname in ("bfloat16", "float32"):
@@ -1548,15 +1555,63 @@ def _check_fused(fb, torch, conv_keys, tail_keys):
                    *fb.bottleneck_tail_bwd(*args, **kw))
             want = (fb.bottleneck_tail_fwd_reference(*args[:7], **kw),
                     *fb.bottleneck_tail_bwd_reference(*args, **kw))
-            again = (fb.bottleneck_tail_bwd(*args, **kw)
+            again = ((fb.bottleneck_tail_fwd(*args[:7], **kw),
+                      *fb.bottleneck_tail_bwd(*args, **kw))
                      if dname == "bfloat16" else None)
             torch.cuda.synchronize()
             rows.append(_hold("bottleneck_tail", key, dname,
                               ("out", "dy2", "dw", "dg2", "db2", "dg3",
                                "db3", "dres"), got, want, torch))
-            _rerun(rows[-1], got[1:], again, torch)
+            _rerun(rows[-1], got, again, torch)
             del args, got, want, again
     torch.cuda.empty_cache()
+    return rows
+
+
+def _stage_keys(keys):
+    """One call shape per stage of the path: the first key (sorted) at
+    each row count HW, the widest HW first."""
+    first = {}
+    for key in sorted(keys):
+        first.setdefault(key[1], key)
+    return [first[hw] for hw in sorted(first, reverse=True)]
+
+
+def _check_fwd_plans(fb, torch, conv_keys, tail_keys):
+    """(a') The bf16 forwards under both pass plans (``fwd_plan``'s
+    ``store``) at one call shape per stage must give the same bits.  The
+    store plan applies the statistics to P1's own f32 product, the
+    recompute plan to the product P2 computes again, in the same
+    rounding steps: equal outputs show that P2's product is P1's, so the
+    statistics are those of the y they are applied to."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for kind, keys in (("conv", conv_keys), ("tail", tail_keys)):
+        for key in _stage_keys(keys):
+            if kind == "conv":
+                args = _conv_gn_case(fb, torch, gen, key, torch.bfloat16)[:4]
+                kw = dict(groups=key[4], eps=FB_EPS, relu=key[5])
+                fn = fb._conv_gn_fwd_kernel
+            else:
+                args = _tail_case(fb, torch, gen, key, torch.bfloat16)[:7]
+                kw = dict(groups2=key[4], groups3=key[5], eps=FB_EPS)
+                fn = fb._tail_fwd_kernel
+            kept = fn(*args, **kw, store=True)
+            again = fn(*args, **kw, store=False)
+            torch.cuda.synchronize()
+            row = {"kernel": kind, "key": list(key),
+                   "bit_equal": torch.equal(kept, again),
+                   "max_abs_diff": (kept.float() - again.float()).abs()
+                   .max().item()}
+            print(f"fused_block {kind} {list(key)} bf16 forward, kept y "
+                  f"against recomputed y: bit-equal {row['bit_equal']} "
+                  f"(max |diff| {row['max_abs_diff']})")
+            if not row["bit_equal"]:
+                raise SystemExit(f"the bf16 {kind} forward's two plans "
+                                 f"disagree at {key}: P2's product is not "
+                                 f"P1's")
+            rows.append(row)
+            del args, kept, again
     return rows
 
 
@@ -1609,15 +1664,24 @@ def _img4(t):
     return t.view(t.shape[0], t.shape[1], 1, t.shape[2]).permute(0, 3, 1, 2)
 
 
+GRID_CALLS = 10
+
+
 def _grid_ms(fn, torch):
     """Each kernel one ``fn()`` call launches, by name (a short name for
-    the fused product body), from the profiler's trace of the call: its
-    device time (``ms``) and, where the trace records them, the shared
-    memory (bytes, static and dynamic) and the registers a thread it was
-    launched with (the largest over its launches).  One call warms the
-    tracer up (a trace started cold loses a call's first grids) and the
-    next is recorded; the trace is written into the kernels' build
-    directory and removed."""
+    the fused product body), from the profiler's trace: its device time
+    a call (``ms``) and, where the trace records them, the shared memory
+    (bytes, static and dynamic) and the registers a thread it was
+    launched with (the largest over its launches).  In each of three
+    profiler sessions one call warms the tracer up and the next
+    ``GRID_CALLS`` are recorded, issued 50 ms inside their step; the
+    reading with the most kernel launches is kept.  The trace's window
+    can gain or lose a call's grids at its edges (a trace of one short
+    call lost its first grids or all of them), so a grid's time a call
+    is its mean over its launches times its launches a call: its
+    launches over the lower median of all names' launches (most grids
+    are launched once a call).  The trace is written into the kernels'
+    build directory and removed."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from distkeras_tpu_torch.ops import _build
@@ -1625,20 +1689,33 @@ def _grid_ms(fn, torch):
     path = _build.BUILD_DIR / "grids_trace.json"
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))
-                 ) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
-    out = {}
-    for ev in events:
-        if ev.get("cat") != "kernel":
-            continue
+    best = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(
+                         str(path))) as prof:
+            for calls in (1, GRID_CALLS):
+                time.sleep(0.05)
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                prof.step()
+        kernels = [ev for ev in json.loads(path.read_text())["traceEvents"]
+                   if ev.get("cat") == "kernel"]
+        path.unlink()
+        if len(kernels) > len(best):
+            best = kernels
+    return _grids_of(best)
+
+
+def _grids_of(kernels):
+    """``_grid_ms``'s reading of the trace's kernel events ``kernels``
+    over several calls: by grid name, its device time a call and its
+    launch resources."""
+    out, launches = {}, {}
+    for ev in kernels:
         name = ev["name"]
         m = re.search(r"gemm_kernel<(\d+), (\d+), \w+, \w+, "
                       r"fused_block::tc::(\w+)>", name)
@@ -1647,20 +1724,27 @@ def _grid_ms(fn, torch):
                else m2.group(1) if m2 else name[:40])
         grid = out.setdefault(key, {"ms": 0.0})
         grid["ms"] += ev["dur"] / 1e3
+        launches[key] = launches.get(key, 0) + 1
         args = ev.get("args", {})
         for field, label in (("smem", "shared memory"),
                              ("registers", "registers per thread")):
             if label in args:
                 grid[field] = max(grid.get(field, 0), int(args[label]))
+    counts = sorted(launches.values())
+    calls = counts[(len(counts) - 1) // 2] if counts else 1
+    for key, grid in out.items():
+        grid["ms"] *= max(1, round(launches[key] / calls)) / launches[key]
     return out
 
 
 def _time_fused(fb, torch, F, conv_mix, tail_mix):
     """(b) Per launch at each call shape of the path, bf16: kernels,
     plain versions and the torch spelling of the same region (forward by
-    graph replay; the spelling's backward by profiler device time); the
-    backward kernels' grids from one profiled call; #8 under both pass
-    plans (``bwd_plan``: y kept in f32, or recomputed)."""
+    graph replay; the spelling's backward by profiler device time); each
+    kernel's grids from its profiled calls (``_grid_ms``); both forwards
+    under both pass
+    plans (``fwd_plan``) and #8 under both of its own (``bwd_plan``: y
+    kept in f32, or recomputed)."""
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(9)
     for kind, mix in (("conv", conv_mix), ("tail", tail_mix)):
@@ -1670,6 +1754,8 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
                 kw = dict(groups=key[4], relu=key[5])
                 fwd, fwd_ref = fb.conv1x1_gn_fwd, fb.conv1x1_gn_fwd_reference
                 bwd, bwd_ref = fb.conv1x1_gn_bwd, fb.conv1x1_gn_bwd_reference
+                fwd_kernel, groups = fb._conv_gn_fwd_kernel, key[4]
+                fkw = dict(groups=key[4], eps=FB_EPS, relu=key[5])
                 fargs = args[:4]
                 x4, w, gamma, beta, dy = args
                 leaves = [_img4(x4).detach().clone().requires_grad_(),
@@ -1686,6 +1772,8 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
                     fb.bottleneck_tail_fwd_reference
                 bwd, bwd_ref = fb.bottleneck_tail_bwd, \
                     fb.bottleneck_tail_bwd_reference
+                fwd_kernel, groups = fb._tail_fwd_kernel, key[4:6]
+                fkw = dict(groups2=key[4], groups3=key[5], eps=FB_EPS)
                 fargs = args[:7]
                 y2, w, g2, b2, g3, b3, res, dy = args
                 leaves = [_img4(y2).detach().clone().requires_grad_(),
@@ -1698,6 +1786,8 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
                     F, torch, *a, k[4], k[5]))
             spelled = spell()
             dy4 = _img4(dy)
+            grids = {"fwd_grids": _grid_ms(lambda: fwd(*fargs, **kw), torch),
+                     "bwd_grids": _grid_ms(lambda: bwd(*args, **kw), torch)}
             row = {
                 "fwd_ms": _time_ms(lambda: fwd(*fargs, **kw), 5),
                 "fwd_plain_ms": _time_ms(lambda: fwd_ref(*fargs, **kw), 3),
@@ -1705,8 +1795,12 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
                 "bwd_ms": _time_ms(lambda: bwd(*args, **kw), 5),
                 "bwd_plain_ms": _time_ms(lambda: bwd_ref(*args, **kw), 3),
                 "bwd_spelled_ms": _profiled_ms(lambda: torch.autograd.grad(
-                    spelled, leaves, dy4, retain_graph=True), 5)}
-            row["bwd_grids"] = _grid_ms(lambda: bwd(*args, **kw), torch)
+                    spelled, leaves, dy4, retain_graph=True), 5), **grids}
+            store = fb.fwd_plan(kind, *key[:4], groups,
+                                torch.bfloat16)["store"]
+            row["fwd_plan"] = "store" if store else "recompute"
+            row["fwd_other_plan_ms"] = _time_ms(
+                lambda: fwd_kernel(*fargs, **fkw, store=not store), 5)
             if kind == "conv":
                 store = fb.bwd_plan("conv", *key[:5], torch.bfloat16)["store"]
                 row["bwd_plan"] = "store" if store else "recompute"
@@ -1723,23 +1817,25 @@ def _time_fused(fb, torch, F, conv_mix, tail_mix):
             print(f"timing {kind} {list(key)} bf16 (x{mix[key]} per step): "
                   + " ".join(f"{k}={v:.5f}" if isinstance(v, float)
                              else f"{k}={v}" for k, v in row.items()
-                             if k != "bwd_grids")
-                  + " | grids ms: " + " ".join(
+                             if not k.endswith("_grids"))
+                  + "".join(f" | {pre} grids ms: " + " ".join(
                       f"{g}={d['ms']:.4f}"
-                      for g, d in row["bwd_grids"].items()))
+                      for g, d in row[f"{pre}_grids"].items())
+                      for pre in ("fwd", "bwd")))
             del args, fargs, leaves, spelled, dy4
             torch.cuda.empty_cache()
     return out
 
 
-def _launched(fb_timing, kind, mix):
-    """The grids of a bf16 backward over the path's call shapes: the
-    shared memory (bytes) and registers a thread they were launched with,
-    [least, most] by grid (the product body keyed as in its ptxas
-    report), where the profiler's trace records them."""
+def _launched(fb_timing, kind, mix, pre="bwd"):
+    """The grids of a bf16 kernel (``pre``: "fwd" or "bwd") over the
+    path's call shapes: the shared memory (bytes) and registers a thread
+    they were launched with, [least, most] by grid (the product body
+    keyed as in its ptxas report), where the profiler's trace records
+    them."""
     out = {}
     for k in mix:
-        for grid, g in fb_timing[(kind, k)]["bwd_grids"].items():
+        for grid, g in fb_timing[(kind, k)][f"{pre}_grids"].items():
             for f in ("smem", "registers"):
                 if f in g:
                     lo, hi = out.setdefault(grid, {}).get(f, (g[f], g[f]))
@@ -1747,20 +1843,22 @@ def _launched(fb_timing, kind, mix):
     return dict(sorted(out.items()))
 
 
-def _plan_means(fb_timing, mix):
-    """#8's launch-weighted times over the calls where its plan rule
-    (``_store_y``) keeps y ("store") and where it recomputes y: under the
-    chosen plan and under the other."""
+def _plan_means(fb_timing, mix, kind="conv", pre="bwd"):
+    """A kernel's launch-weighted times (#8: ``kind`` "conv", ``pre``
+    "bwd"; the forwards: "fwd") over the calls where its plan rule keeps
+    y ("store") and where it recomputes y: under the chosen plan and
+    under the other."""
     out = {}
     for plan in ("store", "recompute"):
-        keys = [k for k in mix if fb_timing[("conv", k)]["bwd_plan"] == plan]
+        keys = [k for k in mix
+                if fb_timing[(kind, k)][f"{pre}_plan"] == plan]
         n = sum(mix[k] for k in keys)
         if n:
             out[plan] = {"calls": n, **{
-                f: sum(mix[k] * fb_timing[("conv", k)][field]
+                f: sum(mix[k] * fb_timing[(kind, k)][field]
                        for k in keys) / n
-                for f, field in (("chosen_ms", "bwd_ms"),
-                                 ("other_ms", "bwd_other_plan_ms"))}}
+                for f, field in (("chosen_ms", f"{pre}_ms"),
+                                 ("other_ms", f"{pre}_other_plan_ms"))}}
     return out
 
 
@@ -2679,6 +2777,8 @@ def main() -> int:
           f"per step: {sorted(conv_mix.items())}; tail [B, HW, Cm, Cout, "
           f"G2, G3]: {sorted(tail_mix.items())}")
     fb_rows = _check_fused(fb, torch, sorted(conv_mix), sorted(tail_mix))
+    fb_plan_rows = _check_fwd_plans(fb, torch, sorted(conv_mix),
+                                    sorted(tail_mix))
     fb_timing = _time_fused(fb, torch, F, conv_mix, tail_mix)
     torch.cuda.empty_cache()
     fused, fb_counts = _fused_train(args.seed, torch, np, fb, conv_mix,
@@ -2800,10 +2900,9 @@ def main() -> int:
             "torch_spelling_ms": fb_mean(f"{pre}_spelled_ms"),
             "torch_spelling_calls": SPELLED_CALLS[kind],
             **({"ptxas": ptxas[name]} if name in ptxas else {}),
-            **({"launched": _launched(fb_timing, kind, mix)}
-               if pre == "bwd" else {}),
-            **({"plans": _plan_means(fb_timing, mix)}
-               if name == "conv1x1_gn_bwd" else {})})
+            "launched": _launched(fb_timing, kind, mix, pre),
+            **({"plans": _plan_means(fb_timing, mix, kind, pre)}
+               if name != "bottleneck_tail_bwd" else {})})
     # the hop kernels' numbers are launch-weighted over the ring's hop
     # mix (per layer and direction: 4 diagonal, 6 past, 6 dead hops); a
     # dead hop has no library call, so library_ms is weighted over the
@@ -2859,6 +2958,7 @@ def main() -> int:
             "group_norm_timing": [{"key": list(k), "per_step": gn_mix[k],
                                    **v} for k, v in gn_timing.items()],
             "ps_train": ps, "fused_block_checks": fb_rows,
+            "fused_forward_plans": fb_plan_rows,
             "fused_block_timing": [{"kind": k[0], "key": list(k[1]), **v}
                                    for k, v in fb_timing.items()],
             "fused_train": fused, "hop_checks": hop_rows,

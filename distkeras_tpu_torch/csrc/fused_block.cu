@@ -30,41 +30,33 @@
 // the statistics, the product and the norm run in one pass over it.
 // Here a block has at most 227 KB of shared memory and the batch's
 // images are too few to fill 132 SMs one by one, so each direction is a
-// chain of grids on the caller's stream.
+// chain of grids on the caller's stream: an image's GroupNorm statistics
+// need all of its rows before anything can be applied.  One chain per
+// dtype.
 //
-// The forwards (both dtypes) and the f32 backwards:
-//   * products: a tiled matrix product with generic strides (so x @ w,
-//     dy @ w^T and x^T @ dy are one kernel), f32 sums: for bf16 the
-//     tensor cores through mma.sync.m16n8k16 (exact products, f32
-//     accumulation), for f32 FMA on CUDA cores (never TF32).  The f32
-//     product lands in a workspace rather than being recomputed for the
-//     norm;
-//   * statistics: per (row tile, image) blocks take f32 per-channel
-//     partial sums; every block of the next grid folds its image's
-//     partials in a fixed order, then groups them;
-//   * apply: normalize, affine, ReLU, residual, one rounding;
-//   * the weight gradient: a product over all B*HW rows, cut into
-//     chunks of rows, each chunk's f32 partial written apart and folded
-//     in a fixed order; dgamma and dbeta per image, folded the same way.
+// bf16 (the *_tc functions): every product runs on fused_gemm.cuh, one
+// wgmma body fed by TMA whose epilogue does the GroupNorm work on the
+// accumulators (statistics; the apply, ReLU and residual; xhat, the ReLU
+// tests, dz and its sums; dy_raw; the tail's dh behind h's ReLU).  What
+// bounds these calls is bytes, so each call follows a pass plan
+// (ops/fused_block.py fwd_plan, bwd_plan) whose rule is: write an f32
+// intermediate only where that takes less time than recomputing it on
+// the tensor cores from its bf16 input.  A forward is P1 (the product's
+// statistics), the fold, then either a 16-byte apply pass over the kept
+// f32 y (store) or P2, the same product again with the apply in its
+// epilogue (recompute).  The tail's backward recomputes y3 = h @ w in
+// each of its three passes and keeps dh (4 C_m bytes a row against 2
+// C_out to recompute); conv_gn_bwd keeps y where its input is wide.
 //
-// The bf16 backwards (conv_gn_bwd, tail_bwd) were bound by bytes they
-// need not move: f32 workspaces of the product written once and read
-// three times (the tail's [B*HW, C_out] one alone 3.3 GB a call at the
-// first stage), 2-byte loads into a 64 x 64 mma.sync tile, and one
-// element a thread in the norm passes.  They run on fused_gemm.cuh: one
-// wgmma product body fed by TMA, whose epilogue does the GroupNorm work
-// on the accumulators (statistics; xhat, the ReLU tests, dz and its
-// sums; dy_raw; the tail's dh behind h's ReLU).  The rule of each plan:
-// write an f32 intermediate only where that takes less time than
-// recomputing it on the tensor cores from its bf16 input.  So the tail
-// recomputes y3 = h @ w three times (P1 statistics, P2 dres and GN3's
-// sums, P3 dy3) instead of keeping it, and keeps dh (4 C_m bytes a row
-// against 2 C_out to recompute); conv_gn_bwd recomputes y only where
-// its input is narrow, since each recompute is a product of C_in depth
-// as well as a read of x, and keeps it in f32 elsewhere
-// (ops/fused_block.py _store_y, bwd_plan).  The passes left outside a
-// product move 16 bytes a thread, and each image's group statistics are
-// folded once into a [B, G] row.
+// f32 (the *_f32 functions): the products on CUDA cores (FMA, never
+// TF32) into an f32 workspace, then the same 16-byte statistics, apply
+// and gradient passes as bf16's kept intermediates.
+//
+// Passes outside a product move 16 bytes a thread; each image's group
+// statistics and gradient terms are folded once into a [B, G] row; the
+// weight gradient is a product over all B*HW rows cut into chunks of
+// rows, each chunk's f32 partial written apart and folded in a fixed
+// order, and dgamma and dbeta per image, folded the same way.
 //
 // No atomics: a run is deterministic.  Where the plain version rounds
 // (the affine, the ReLU tests, dy_raw), the kernels round the same way
@@ -82,55 +74,17 @@ namespace fused_block {
 namespace {
 
 constexpr int NT = 256;        // threads of the statistics/apply blocks
-constexpr int TILE = 64;       // product tile edge (M and N)
+constexpr int TILE = 64;       // FMA product tile edge (M and N)
 constexpr int FMA_K = 16;      // FMA product depth step
-constexpr int MMA_K = 32;      // tensor-core product depth step
-constexpr int MMA_LD = MMA_K + 8;  // padded shared row (bf16 elements)
 
-enum { APPLY_PLAIN = 0, APPLY_RELU = 1, APPLY_RESID_RELU = 2 };
+using tc::APPLY_PLAIN;
+using tc::APPLY_RELU;
+using tc::APPLY_RESID_RELU;
 using tc::MASK_NONE;
 using tc::MASK_RELU;
 using tc::MASK_RESID;
 
-__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// ---- statistics and norm passes ---------------------------------------
-
-// Thread t owns channel cb + t % CC of each chunk of CC = min(C, NT)
-// channels and walks the rows rl, rl + RP, ... of its tile (RP = NT / CC
-// row lanes; threads with rl >= RP idle).
-struct Lanes {
-  int CC, RP, cl, rl;
-  __device__ explicit Lanes(int C) {
-    CC = C < NT ? C : NT;
-    RP = NT / CC;
-    cl = threadIdx.x % CC;
-    rl = threadIdx.x / CC;
-  }
-};
-
-// Folds the row lanes' sums red[2][RP][CC] of the chunk at channel cb into
-// out[cb + i] and out[C + cb + i].
-__device__ __forceinline__ void fold_lanes(const float* red, float* out,
-                                           const Lanes& L, int cb, int C) {
-  for (int i = threadIdx.x; i < L.CC; i += NT) {
-    if (cb + i >= C) continue;
-    float s1 = 0.f, s2 = 0.f;
-    for (int r = 0; r < L.RP; ++r) {
-      s1 += red[r * L.CC + i];
-      s2 += red[(L.RP + r) * L.CC + i];
-    }
-    out[cb + i] = s1;
-    out[C + cb + i] = s2;
-  }
-}
+// ---- statistics folds ---------------------------------------------------
 
 // Per-group mean and inv-std of image b from its per-tile channel sums
 // part_b[T][2][C], in a fixed order: tiles per channel into csum[2][C],
@@ -163,203 +117,6 @@ __device__ void fold_stats(const float* part_b, int ntiles, int C, int G,
   __syncthreads();
 }
 
-// Per-tile channel sums of a and a^2 -> part[B][T][2][C].
-template <typename TI>
-__global__ void __launch_bounds__(NT) stats_kernel(
-    const TI* __restrict__ a, float* __restrict__ part, int HW, int C, int R,
-    int ntiles) {
-  extern __shared__ float red[];  // [2][RP][CC]
-  const Lanes L(C);
-  const int b = blockIdx.y, tile = blockIdx.x;
-  const int r0 = tile * R, r1 = min(HW, r0 + R);
-  const size_t base = (size_t)b * HW * C;
-  float* out = part + ((size_t)b * ntiles + tile) * 2 * C;
-  for (int cb = 0; cb < C; cb += L.CC) {
-    const int c = cb + L.cl;
-    float s1 = 0.f, s2 = 0.f;
-    if (L.rl < L.RP && c < C) {
-      for (int r = r0 + L.rl; r < r1; r += L.RP) {
-        const float v = ld(a, base + (size_t)r * C + c);
-        s1 += v;
-        s2 += v * v;
-      }
-    }
-    if (L.rl < L.RP) {
-      red[L.rl * L.CC + L.cl] = s1;
-      red[(L.RP + L.rl) * L.CC + L.cl] = s2;
-    }
-    __syncthreads();
-    fold_lanes(red, out, L, cb, C);
-    __syncthreads();
-  }
-}
-
-// The norm: out = (a - mean) * inv * gamma + beta, then per mode a ReLU,
-// or the residual added and a ReLU; one rounding to TO.
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(NT) apply_kernel(
-    const TI* __restrict__ a, const float* __restrict__ part,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
-    const TO* __restrict__ res, TO* __restrict__ out, int HW, int C, int G,
-    int R, int ntiles, float count, float eps, int mode) {
-  extern __shared__ float sh[];
-  float* csum = sh;                 // [2][C]
-  float* gmean = sh + 2 * C;        // [G]
-  float* ginv = gmean + G;          // [G]
-  const int b = blockIdx.y, tile = blockIdx.x;
-  fold_stats(part + (size_t)b * ntiles * 2 * C, ntiles, C, G, count, eps,
-             csum, gmean, ginv);
-  const Lanes L(C);
-  if (L.rl >= L.RP) return;
-  const int r0 = tile * R, r1 = min(HW, r0 + R), cg = C / G;
-  const size_t base = (size_t)b * HW * C;
-  for (int cb = 0; cb < C; cb += L.CC) {
-    const int c = cb + L.cl;
-    if (c >= C) continue;
-    const float m = gmean[c / cg], iv = ginv[c / cg];
-    const float ga = gamma[c], be = beta[c];
-    for (int r = r0 + L.rl; r < r1; r += L.RP) {
-      const size_t off = base + (size_t)r * C + c;
-      const float xh = __fmul_rn(__fsub_rn(ld(a, off), m), iv);
-      float o = __fadd_rn(__fmul_rn(xh, ga), be);
-      if (mode == APPLY_RELU) {
-        o = fmaxf(o, 0.f);
-      } else if (mode == APPLY_RESID_RELU) {
-        o = fmaxf(__fadd_rn(o, ld(res, off)), 0.f);
-      }
-      st(out, off, o);
-    }
-  }
-}
-
-// The gradient the ReLU test lets through: z = xhat * gamma + beta (+ res
-// for MASK_RESID), rounded as the plain version rounds it.
-template <typename TO>
-__device__ __forceinline__ float masked(float d, float xh, float ga,
-                                        float be, const TO* res, size_t off,
-                                        int mask) {
-  if (mask == MASK_NONE) return d;
-  float z = __fadd_rn(__fmul_rn(xh, ga), be);
-  if (mask == MASK_RESID) z = __fadd_rn(z, ld(res, off));
-  return z > 0.f ? d : 0.f;
-}
-
-// GroupNorm backward, pass 1: per-tile channel sums of the masked
-// gradient dz and of dz * xhat -> partd[B][T][2][C].  With MASK_RESID
-// the masked gradient is also written (the tail's dres).
-template <typename TR, typename TG, typename TO>
-__global__ void __launch_bounds__(NT) bwd_stats_kernel(
-    const TR* __restrict__ raw, const TG* __restrict__ grad,
-    const float* __restrict__ part_raw, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const TO* __restrict__ res,
-    TO* __restrict__ dz_out, float* __restrict__ partd, int HW, int C, int G,
-    int R, int ntiles, float count, float eps, int mask) {
-  extern __shared__ float sh[];
-  float* csum = sh;                 // [2][C]
-  float* gmean = sh + 2 * C;        // [G]
-  float* ginv = gmean + G;          // [G]
-  float* red = ginv + G;            // [2][RP][CC]
-  const int b = blockIdx.y, tile = blockIdx.x;
-  fold_stats(part_raw + (size_t)b * ntiles * 2 * C, ntiles, C, G, count,
-             eps, csum, gmean, ginv);
-  const Lanes L(C);
-  const int r0 = tile * R, r1 = min(HW, r0 + R), cg = C / G;
-  const size_t base = (size_t)b * HW * C;
-  float* out = partd + ((size_t)b * ntiles + tile) * 2 * C;
-  for (int cb = 0; cb < C; cb += L.CC) {
-    const int c = cb + L.cl;
-    float s1 = 0.f, s2 = 0.f;
-    if (L.rl < L.RP && c < C) {
-      const float m = gmean[c / cg], iv = ginv[c / cg];
-      const float ga = gamma[c], be = beta[c];
-      for (int r = r0 + L.rl; r < r1; r += L.RP) {
-        const size_t off = base + (size_t)r * C + c;
-        const float xh = __fmul_rn(__fsub_rn(ld(raw, off), m), iv);
-        const float d = masked(ld(grad, off), xh, ga, be, res, off, mask);
-        if (mask == MASK_RESID) st(dz_out, off, d);
-        s1 += d;
-        s2 += d * xh;
-      }
-    }
-    if (L.rl < L.RP) {
-      red[L.rl * L.CC + L.cl] = s1;
-      red[(L.RP + L.rl) * L.CC + L.cl] = s2;
-    }
-    __syncthreads();
-    fold_lanes(red, out, L, cb, C);
-    __syncthreads();
-  }
-}
-
-// GroupNorm backward, pass 2: dbeta, dgamma per image (the tile-0 block
-// writes them to per_image[2][B][C]) and the group terms from the
-// partials, then dy_raw = inv * (dz * gamma - t1 / count - xhat * t2 /
-// count), rounded once to TO.
-template <typename TR, typename TG, typename TO>
-__global__ void __launch_bounds__(NT) bwd_apply_kernel(
-    const TR* __restrict__ raw, const TG* __restrict__ grad,
-    const float* __restrict__ part_raw, const float* __restrict__ partd,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
-    TO* __restrict__ out, float* __restrict__ per_image, int B, int HW,
-    int C, int G, int R, int ntiles, float count, float eps, int mask) {
-  extern __shared__ float sh[];
-  float* csum = sh;                 // [2][C]: raw sums, then dbeta, dgamma
-  float* gmean = sh + 2 * C;        // [G]
-  float* ginv = gmean + G;          // [G]
-  float* u1 = ginv + G;             // [G]  sum(dz * gamma) / count
-  float* u2 = u1 + G;               // [G]  sum(dz * gamma * xhat) / count
-  const int b = blockIdx.y, tile = blockIdx.x;
-  fold_stats(part_raw + (size_t)b * ntiles * 2 * C, ntiles, C, G, count,
-             eps, csum, gmean, ginv);
-  const float* pd = partd + (size_t)b * ntiles * 2 * C;
-  for (int c = threadIdx.x; c < C; c += NT) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      s1 += pd[(size_t)t * 2 * C + c];
-      s2 += pd[(size_t)t * 2 * C + C + c];
-    }
-    csum[c] = s1;
-    csum[C + c] = s2;
-    if (tile == 0) {
-      per_image[(size_t)b * C + c] = s2;            // dgamma
-      per_image[((size_t)B + b) * C + c] = s1;      // dbeta
-    }
-  }
-  __syncthreads();
-  const int cg = C / G;
-  for (int g = threadIdx.x; g < G; g += NT) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = 0; k < cg; ++k) {
-      const int c = g * cg + k;
-      s1 += gamma[c] * csum[c];
-      s2 += gamma[c] * csum[C + c];
-    }
-    u1[g] = s1 / count;
-    u2[g] = s2 / count;
-  }
-  __syncthreads();
-  const Lanes L(C);
-  if (L.rl >= L.RP) return;
-  const int r0 = tile * R, r1 = min(HW, r0 + R);
-  const size_t base = (size_t)b * HW * C;
-  for (int cb = 0; cb < C; cb += L.CC) {
-    const int c = cb + L.cl;
-    if (c >= C) continue;
-    const int g = c / cg;
-    const float m = gmean[g], iv = ginv[g], ga = gamma[c], be = beta[c];
-    const float t1 = u1[g], t2 = u2[g];
-    for (int r = r0 + L.rl; r < r1; r += L.RP) {
-      const size_t off = base + (size_t)r * C + c;
-      const float xh = __fmul_rn(__fsub_rn(ld(raw, off), m), iv);
-      const float d = masked(ld(grad, off), xh, ga, be,
-                             static_cast<const TO*>(nullptr), off, mask);
-      const float dzg = __fmul_rn(d, ga);
-      st(out, off, __fmul_rn(iv, __fsub_rn(__fsub_rn(dzg, t1),
-                                           __fmul_rn(xh, t2))));
-    }
-  }
-}
-
 // out[i] = sum over z of part[z * size + i], z in order.
 __global__ void fold_kernel(const float* __restrict__ part,
                             float* __restrict__ out, int n, size_t size) {
@@ -383,7 +140,7 @@ __global__ void fold2_kernel(const float* __restrict__ per_image,
   (blockIdx.y == 0 ? dgamma : dbeta)[c] = s;
 }
 
-// ---- 16-byte passes and folds of the bf16 backwards ----------------------
+// ---- 16-byte passes and once-per-image folds ---------------------------
 
 // Thread t owns channels 8v .. 8v + 7, v = t % VC (VC = C / 8 vectors,
 // at most NT by MAX_CHANNELS), and walks the rows rl, rl + RP, ... of its
@@ -420,6 +177,10 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float* x) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
 }
 
 // The parameters of the thread's 8 channels: mean, inv, gamma, beta from
@@ -492,12 +253,14 @@ __global__ void __launch_bounds__(NT) stats8_kernel(
   fold_lanes8(red, s1, s2, part + ((size_t)b * ntiles + tile) * 2 * C, L, C);
 }
 
-// out = [relu]((a - mean) * inv * gamma + beta), one rounding to TO.
+// The norm: out = (a - mean) * inv * gamma + beta, then per mode a ReLU,
+// or the residual added and a ReLU; one rounding to TO.
 template <typename TI, typename TO>
 __global__ void __launch_bounds__(NT) apply8_kernel(
     const TI* __restrict__ a, const float* __restrict__ gst,
     const float* __restrict__ gamma, const float* __restrict__ beta,
-    TO* __restrict__ out, int HW, int C, int G, int R, int relu) {
+    const TO* __restrict__ res, TO* __restrict__ out, int HW, int C, int G,
+    int R, int mode) {
   const Lanes8 L(C);
   if (L.rl >= L.RP) return;
   const int b = blockIdx.y, tile = blockIdx.x;
@@ -505,26 +268,31 @@ __global__ void __launch_bounds__(NT) apply8_kernel(
   const Cols8 p(gst, gamma, beta, b, 8 * L.v, C, G, false);
   const size_t base = (size_t)b * HW * C + 8 * L.v;
   for (int r = r0 + L.rl; r < r1; r += L.RP) {
-    float x[8];
+    float x[8], rv[8];
     load8(a + base + (size_t)r * C, x);
+    if (mode == APPLY_RESID_RELU) load8(res + base + (size_t)r * C, rv);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float xh = __fmul_rn(__fsub_rn(x[i], p.m[i]), p.iv[i]);
-      const float o = __fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]);
-      x[i] = relu ? fmaxf(o, 0.f) : o;
+      float o = __fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]);
+      if (mode == APPLY_RESID_RELU) o = __fadd_rn(o, rv[i]);
+      x[i] = mode == APPLY_PLAIN ? o : fmaxf(o, 0.f);
     }
     store8(out + base + (size_t)r * C, x);
   }
 }
 
 // GroupNorm backward, first pass over a kept raw tensor: per-tile sums
-// of the masked gradient dz and of dz * xhat -> partd[B][T][2][C].
-template <typename TR, typename TG>
+// of the masked gradient dz and of dz * xhat -> partd[B][T][2][C].  With
+// MASK_RESID the ReLU test adds the residual and the masked gradient is
+// also written (the tail's dres).
+template <typename TR, typename TG, typename TO>
 __global__ void __launch_bounds__(NT) bwd_stats8_kernel(
     const TR* __restrict__ raw, const TG* __restrict__ grad,
     const float* __restrict__ gst, const float* __restrict__ gamma,
-    const float* __restrict__ beta, float* __restrict__ partd, int HW, int C,
-    int G, int R, int ntiles, int mask) {
+    const float* __restrict__ beta, const TO* __restrict__ res,
+    TO* __restrict__ dz_out, float* __restrict__ partd, int HW, int C, int G,
+    int R, int ntiles, int mask) {
   extern __shared__ float red[];  // [2][RP][C]
   const Lanes8 L(C);
   const int b = blockIdx.y, tile = blockIdx.x;
@@ -534,18 +302,22 @@ __global__ void __launch_bounds__(NT) bwd_stats8_kernel(
     const Cols8 p(gst, gamma, beta, b, 8 * L.v, C, G, false);
     const size_t base = (size_t)b * HW * C + 8 * L.v;
     for (int r = r0 + L.rl; r < r1; r += L.RP) {
-      float x[8], d[8];
+      float x[8], d[8], rv[8];
       load8(raw + base + (size_t)r * C, x);
       load8(grad + base + (size_t)r * C, d);
+      if (mask == MASK_RESID) load8(res + base + (size_t)r * C, rv);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float xh = __fmul_rn(__fsub_rn(x[i], p.m[i]), p.iv[i]);
-        if (mask == MASK_RELU &&
-            !(__fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]) > 0.f))
-          d[i] = 0.f;
+        if (mask != MASK_NONE) {
+          float z = __fadd_rn(__fmul_rn(xh, p.ga[i]), p.be[i]);
+          if (mask == MASK_RESID) z = __fadd_rn(z, rv[i]);
+          if (!(z > 0.f)) d[i] = 0.f;
+        }
         s1[i] += d[i];
         s2[i] += d[i] * xh;
       }
+      if (mask == MASK_RESID) store8(dz_out + base + (size_t)r * C, d);
     }
   }
   fold_lanes8(red, s1, s2, partd + ((size_t)b * ntiles + tile) * 2 * C, L,
@@ -553,13 +325,13 @@ __global__ void __launch_bounds__(NT) bwd_stats8_kernel(
 }
 
 // GroupNorm backward, second pass over a kept raw tensor: dy_raw = inv *
-// (dz * gamma - u1 - xhat * u2), rounded once to bf16.
-template <typename TR, typename TG>
+// (dz * gamma - u1 - xhat * u2), rounded once to TO.
+template <typename TR, typename TG, typename TO>
 __global__ void __launch_bounds__(NT) bwd_apply8_kernel(
     const TR* __restrict__ raw, const TG* __restrict__ grad,
     const float* __restrict__ gst, const float* __restrict__ gamma,
-    const float* __restrict__ beta, __nv_bfloat16* __restrict__ out, int HW,
-    int C, int G, int R, int mask) {
+    const float* __restrict__ beta, TO* __restrict__ out, int HW, int C,
+    int G, int R, int mask) {
   const Lanes8 L(C);
   if (L.rl >= L.RP) return;
   const int b = blockIdx.y, tile = blockIdx.x;
@@ -649,10 +421,9 @@ struct Gemm {
 };
 
 // f32 on CUDA cores: 64 x 64 tiles, 256 threads of 4 x 4 outputs.
-template <typename TC>
 __global__ void __launch_bounds__(256) gemm_fma_kernel(
     const float* __restrict__ A, const float* __restrict__ Bm,
-    TC* __restrict__ Cm, Gemm p) {
+    float* __restrict__ Cm, Gemm p) {
   __shared__ float As[FMA_K][TILE];
   __shared__ float Bs[FMA_K][TILE];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -692,7 +463,7 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(
     }
     __syncthreads();
   }
-  TC* c = Cm + blockIdx.z * p.zstride;
+  float* c = Cm + blockIdx.z * p.zstride;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty + 16 * i;
@@ -700,99 +471,21 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < p.N) st(c, (size_t)gm * p.ldc + gn, acc[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pair(const unsigned short* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// bf16 on the tensor cores: 64 x 64 tiles, 4 warps of 32 x 32, each a
-// 2 x 4 grid of m16n8k16 products per 16-deep step.  Shared tiles hold
-// bf16 bits with k contiguous (As[m][k], Bs[n][k]), the fragment layout
-// of mma.sync's row-major A and column-major B.
-template <typename TC>
-__global__ void __launch_bounds__(128) gemm_mma_kernel(
-    const unsigned short* __restrict__ A,
-    const unsigned short* __restrict__ Bm, TC* __restrict__ Cm, Gemm p) {
-  __shared__ __align__(16) unsigned short As[TILE][MMA_LD];
-  __shared__ __align__(16) unsigned short Bs[TILE][MMA_LD];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  const int kbeg = blockIdx.z * p.kc, kend = min(p.K, kbeg + p.kc);
-  float acc[2][4][4] = {};
-  for (int k0 = kbeg; k0 < kend; k0 += MMA_K) {
-#pragma unroll 4
-    for (int i = 0; i < TILE * MMA_K / 128; ++i) {
-      const int e = tid + i * 128;
-      int m, k;
-      if (p.sak == 1) { m = e / MMA_K; k = e % MMA_K; }
-      else { k = e / TILE; m = e % TILE; }
-      const int gm = m0 + m, gk = k0 + k;
-      As[m][k] = (gm < p.M && gk < kend) ? A[gm * p.sam + gk * p.sak]
-                                         : (unsigned short)0;
-      int n;
-      if (p.sbk == 1) { n = e / MMA_K; k = e % MMA_K; }
-      else { k = e / TILE; n = e % TILE; }
-      const int gn = n0 + n, gk2 = k0 + k;
-      Bs[n][k] = (gn < p.N && gk2 < kend) ? Bm[gk2 * p.sbk + gn * p.sbn]
-                                          : (unsigned short)0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < MMA_K; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + g;
-        a[mi][0] = pair(&As[r][ks + 2 * t]);
-        a[mi][1] = pair(&As[r + 8][ks + 2 * t]);
-        a[mi][2] = pair(&As[r][ks + 2 * t + 8]);
-        a[mi][3] = pair(&As[r + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn * 32 + ni * 8 + g;
-        const uint32_t b0 = pair(&Bs[n][ks + 2 * t]);
-        const uint32_t b1 = pair(&Bs[n][ks + 2 * t + 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-  TC* c = Cm + blockIdx.z * p.zstride;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = m0 + wm * 32 + mi * 16 + g;
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gm = row + 8 * h;
-        if (gm >= p.M) continue;
-        if (col < p.N) st(c, (size_t)gm * p.ldc + col, acc[mi][ni][2 * h]);
-        if (col + 1 < p.N)
-          st(c, (size_t)gm * p.ldc + col + 1, acc[mi][ni][2 * h + 1]);
-      }
+      if (gn < p.N) c[(size_t)gm * p.ldc + gn] = acc[i][j];
     }
   }
 }
 
 // ---- host side ----------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// One launch's error, if any, returns from the caller.
+#define CHECK(call)                  \
+  do {                               \
+    const int e_ = (call);           \
+    if (e_ != 0) return e_;          \
+  } while (0)
 
 Gemm gemm_args(int M, int N, int K, long long sam, long long sak,
                long long sbk, long long sbn, long long ldc, int chunks,
@@ -805,39 +498,14 @@ Gemm gemm_args(int M, int N, int K, long long sam, long long sak,
   return p;
 }
 
-dim3 gemm_grid(const Gemm& p, int chunks) {
-  return dim3((p.N + TILE - 1) / TILE, (p.M + TILE - 1) / TILE, chunks);
-}
-
-template <typename TC>
-int gemm(const float* A, const float* B, TC* C, Gemm p, int chunks,
+int gemm(const float* A, const float* B, float* C, Gemm p, int chunks,
          cudaStream_t s) {
-  gemm_fma_kernel<TC><<<gemm_grid(p, chunks), 256, 0, s>>>(A, B, C, p);
+  const dim3 grid((p.N + TILE - 1) / TILE, (p.M + TILE - 1) / TILE, chunks);
+  gemm_fma_kernel<<<grid, 256, 0, s>>>(A, B, C, p);
   return (int)cudaGetLastError();
 }
 
-template <typename TC>
-int gemm(const __nv_bfloat16* A, const __nv_bfloat16* B, TC* C, Gemm p,
-         int chunks, cudaStream_t s) {
-  gemm_mma_kernel<TC><<<gemm_grid(p, chunks), 128, 0, s>>>(
-      reinterpret_cast<const unsigned short*>(A),
-      reinterpret_cast<const unsigned short*>(B), C, p);
-  return (int)cudaGetLastError();
-}
-
-// Shared memory of the norm passes: csum[2C], four [G] rows, red[2][RP][CC].
-size_t norm_smem(int C, int G) {
-  const int cc = C < NT ? C : NT;
-  return sizeof(float) * (2 * C + 4 * G + 2 * (NT / cc) * cc);
-}
-
-// One launch's error, if any, returns from the caller.
-#define CHECK(call)                  \
-  do {                               \
-    const int e_ = (call);           \
-    if (e_ != 0) return e_;          \
-  } while (0)
-
+// The row tiles of the passes outside a product: R rows of an image each.
 struct Rows {
   int B, HW, C, G, R, ntiles;
   float count;
@@ -847,152 +515,6 @@ struct Rows {
   dim3 grid() const { return dim3(ntiles, B); }
   size_t part() const { return (size_t)B * ntiles * 2 * C; }
 };
-
-template <typename TI>
-int stats(const TI* a, float* part, const Rows& q, cudaStream_t s) {
-  const int cc = q.C < NT ? q.C : NT;
-  stats_kernel<TI><<<q.grid(), NT, sizeof(float) * 2 * (NT / cc) * cc, s>>>(
-      a, part, q.HW, q.C, q.R, q.ntiles);
-  return (int)cudaGetLastError();
-}
-
-template <typename TI, typename TO>
-int apply(const TI* a, const float* part, const float* gamma,
-          const float* beta, const TO* res, TO* out, const Rows& q,
-          float eps, int mode, cudaStream_t s) {
-  apply_kernel<TI, TO><<<q.grid(), NT, norm_smem(q.C, q.G), s>>>(
-      a, part, gamma, beta, res, out, q.HW, q.C, q.G, q.R, q.ntiles, q.count,
-      eps, mode);
-  return (int)cudaGetLastError();
-}
-
-// The GroupNorm backward of raw -> (dy_raw in out, dgamma and dbeta
-// folded over the images); part: [2] x the statistics' size, raw's sums
-// (already taken) then the gradient's.
-template <typename TR, typename TG, typename TO>
-int norm_bwd(const TR* raw, const TG* grad, float* part, const float* gamma,
-             const float* beta, const TO* res, TO* dz_out, TO* out,
-             float* per_image, float* dgamma, float* dbeta, const Rows& q,
-             float eps, int mask, cudaStream_t s) {
-  float* partd = part + q.part();
-  bwd_stats_kernel<TR, TG, TO><<<q.grid(), NT, norm_smem(q.C, q.G), s>>>(
-      raw, grad, part, gamma, beta, res, dz_out, partd, q.HW, q.C, q.G, q.R,
-      q.ntiles, q.count, eps, mask);
-  CHECK((int)cudaGetLastError());
-  // after MASK_RESID the gradient is the masked one just written
-  const int mask2 = mask == MASK_RESID ? MASK_NONE : mask;
-  if (mask == MASK_RESID) {
-    bwd_apply_kernel<TR, TO, TO><<<q.grid(), NT, norm_smem(q.C, q.G), s>>>(
-        raw, dz_out, part, partd, gamma, beta, out, per_image, q.B, q.HW,
-        q.C, q.G, q.R, q.ntiles, q.count, eps, mask2);
-  } else {
-    bwd_apply_kernel<TR, TG, TO><<<q.grid(), NT, norm_smem(q.C, q.G), s>>>(
-        raw, grad, part, partd, gamma, beta, out, per_image, q.B, q.HW, q.C,
-        q.G, q.R, q.ntiles, q.count, eps, mask2);
-  }
-  CHECK((int)cudaGetLastError());
-  fold2_kernel<<<dim3((q.C + 255) / 256, 2), 256, 0, s>>>(
-      per_image, dgamma, dbeta, q.B, q.C);
-  return (int)cudaGetLastError();
-}
-
-// The weight gradient a^T @ d over M rows of a [M, Ca] and d [M, Cd],
-// in chunks of kc rows, folded in order into dw [Ca, Cd] f32.
-template <typename T>
-int weight_grad(const T* a, const T* d, float* dw_part, float* dw, int M,
-                int Ca, int Cd, int chunks, int kc, cudaStream_t s) {
-  const Gemm p = gemm_args(Ca, Cd, M, 1, Ca, Cd, 1, Cd, chunks, kc);
-  CHECK(gemm(a, d, dw_part, p, chunks, s));
-  const size_t n = (size_t)Ca * Cd;
-  fold_kernel<<<(int)((n + 255) / 256), 256, 0, s>>>(dw_part, dw, chunks, n);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int conv_gn_fwd_t(const T* x, const T* w, const float* gamma,
-                  const float* beta, T* y, float* ws, float* part, int B,
-                  int HW, int Cin, int Cout, int G, int R, float eps, int relu,
-                  cudaStream_t s) {
-  const int M = B * HW;
-  const Rows q(B, HW, Cout, G, R);
-  CHECK(gemm(x, w, ws, gemm_args(M, Cout, Cin, Cin, 1, Cout, 1, Cout, 1, 0),
-             1, s));
-  CHECK(stats(ws, part, q, s));
-  return apply(ws, part, gamma, beta, static_cast<const T*>(nullptr), y, q,
-               eps, relu ? APPLY_RELU : APPLY_PLAIN, s);
-}
-
-template <typename T>
-int conv_gn_bwd_t(const T* x, const T* w, const float* gamma,
-                  const float* beta, const T* dy, T* dx, float* dw,
-                  float* dgamma, float* dbeta, float* ws, T* dyb, float* part,
-                  float* per_image, float* dw_part, int B, int HW, int Cin,
-                  int Cout, int G, int R, int chunks, int kc, float eps,
-                  int relu, cudaStream_t s) {
-  const int M = B * HW;
-  const Rows q(B, HW, Cout, G, R);
-  // recompute the forward's product and its statistics
-  CHECK(gemm(x, w, ws, gemm_args(M, Cout, Cin, Cin, 1, Cout, 1, Cout, 1, 0),
-             1, s));
-  CHECK(stats(ws, part, q, s));
-  CHECK(norm_bwd(ws, dy, part, gamma, beta, static_cast<const T*>(nullptr),
-                 static_cast<T*>(nullptr), dyb, per_image, dgamma, dbeta, q,
-                 eps, relu ? MASK_RELU : MASK_NONE, s));
-  // dx = dy_raw @ w^T
-  CHECK(gemm(dyb, w, dx, gemm_args(M, Cin, Cout, Cout, 1, 1, Cout, Cin, 1, 0),
-             1, s));
-  return weight_grad(x, dyb, dw_part, dw, M, Cin, Cout, chunks, kc, s);
-}
-
-template <typename T>
-int tail_fwd_t(const T* y2, const T* w, const float* g2, const float* b2,
-               const float* g3, const float* b3, const T* res, T* out, T* hb,
-               float* ws, float* part2, float* part3, int B, int HW, int Cm,
-               int Cout, int G2, int G3, int R, float eps, cudaStream_t s) {
-  const int M = B * HW;
-  const Rows q2(B, HW, Cm, G2, R), q3(B, HW, Cout, G3, R);
-  CHECK(stats(y2, part2, q2, s));
-  CHECK(apply(y2, part2, g2, b2, static_cast<const T*>(nullptr), hb, q2, eps,
-              APPLY_RELU, s));
-  CHECK(gemm(hb, w, ws, gemm_args(M, Cout, Cm, Cm, 1, Cout, 1, Cout, 1, 0),
-             1, s));
-  CHECK(stats(ws, part3, q3, s));
-  return apply(ws, part3, g3, b3, res, out, q3, eps, APPLY_RESID_RELU, s);
-}
-
-template <typename T>
-int tail_bwd_t(const T* y2, const T* w, const float* g2, const float* b2,
-               const float* g3, const float* b3, const T* res, const T* dout,
-               T* dy2, float* dw, float* dg2, float* db2, float* dg3,
-               float* db3, T* dres, T* hb, float* ws3, T* dy3b, float* ws2,
-               float* part2, float* part3, float* per_image2,
-               float* per_image3, float* dw_part, int B, int HW, int Cm,
-               int Cout, int G2, int G3, int R, int chunks, int kc, float eps,
-               cudaStream_t s) {
-  const int M = B * HW;
-  const Rows q2(B, HW, Cm, G2, R), q3(B, HW, Cout, G3, R);
-  // recompute the forward chain up to y3
-  CHECK(stats(y2, part2, q2, s));
-  CHECK(apply(y2, part2, g2, b2, static_cast<const T*>(nullptr), hb, q2, eps,
-              APPLY_RELU, s));
-  CHECK(gemm(hb, w, ws3, gemm_args(M, Cout, Cm, Cm, 1, Cout, 1, Cout, 1, 0),
-             1, s));
-  CHECK(stats(ws3, part3, q3, s));
-  // GN3's backward through the residual ReLU: dres, then dy3 rounded
-  CHECK(norm_bwd(ws3, dout, part3, g3, b3, res, dres, dy3b, per_image3, dg3,
-                 db3, q3, eps, MASK_RESID, s));
-  CHECK(weight_grad(hb, dy3b, dw_part, dw, M, Cm, Cout, chunks, kc, s));
-  // dh = dy3 @ w^T in f32, then GN2's backward through h's ReLU
-  CHECK(gemm(dy3b, w, ws2, gemm_args(M, Cm, Cout, Cout, 1, 1, Cout, Cm, 1, 0),
-             1, s));
-  return norm_bwd(y2, ws2, part2, g2, b2, static_cast<const T*>(nullptr),
-                  static_cast<T*>(nullptr), dy2, per_image2, dg2, db2, q2, eps,
-                  MASK_RELU, s);
-}
-
-// ---- the bf16 backwards on the tensor cores (fused_gemm.cuh) ------------
-
-using bf16 = __nv_bfloat16;
 
 // Shared memory of the 16-byte statistics passes: red[2][RP][C].
 size_t red8_smem(int C) {
@@ -1017,6 +539,190 @@ int group_grad(const float* partd, int ntiles, int B, int C, int G,
   fold2_kernel<<<dim3((C + 255) / 256, 2), 256, 0, s>>>(per_image, dgamma,
                                                         dbeta, B, C);
   return (int)cudaGetLastError();
+}
+
+// The statistics of a kept [B, HW, C] tensor: per-tile sums into part
+// [B][T][2][C], folded once into gst[B][G][0..1].
+template <typename TI>
+int norm_stats(const TI* a, float* part, float* gst, const Rows& q,
+               float eps, cudaStream_t s) {
+  stats8_kernel<TI><<<q.grid(), NT, red8_smem(q.C), s>>>(a, part, q.HW, q.C,
+                                                         q.R, q.ntiles);
+  CHECK((int)cudaGetLastError());
+  return group_stats(part, q.ntiles, q.B, q.C, q.G, q.count, eps, gst, s);
+}
+
+// The norm of a kept tensor from its folded statistics (mode APPLY_*; res
+// read only by APPLY_RESID_RELU).
+template <typename TI, typename TO>
+int norm_apply(const TI* a, const float* gst, const float* gamma,
+               const float* beta, const TO* res, TO* out, const Rows& q,
+               int mode, cudaStream_t s) {
+  apply8_kernel<TI, TO><<<q.grid(), NT, 0, s>>>(a, gst, gamma, beta, res,
+                                                out, q.HW, q.C, q.G, q.R,
+                                                mode);
+  return (int)cudaGetLastError();
+}
+
+// The GroupNorm backward over a kept raw tensor whose statistics gst
+// holds: the gradient's sums into partd [B][T][2][C], folded once (the
+// group terms into gst, dgamma and dbeta over the images), then dy_raw
+// into out.  With MASK_RESID the masked gradient goes to dz_out (the
+// tail's dres), which the second pass reads.
+template <typename TR, typename TG, typename TO>
+int norm_grad(const TR* raw, const TG* grad, float* gst, const float* gamma,
+              const float* beta, const TO* res, TO* dz_out, TO* out,
+              float* partd, float* per_image, float* dgamma, float* dbeta,
+              const Rows& q, int mask, cudaStream_t s) {
+  bwd_stats8_kernel<TR, TG, TO><<<q.grid(), NT, red8_smem(q.C), s>>>(
+      raw, grad, gst, gamma, beta, res, dz_out, partd, q.HW, q.C, q.G, q.R,
+      q.ntiles, mask);
+  CHECK((int)cudaGetLastError());
+  CHECK(group_grad(partd, q.ntiles, q.B, q.C, q.G, q.count, gamma,
+                   per_image, dgamma, dbeta, gst, s));
+  if (mask == MASK_RESID) {
+    bwd_apply8_kernel<TR, TO, TO><<<q.grid(), NT, 0, s>>>(
+        raw, dz_out, gst, gamma, beta, out, q.HW, q.C, q.G, q.R, MASK_NONE);
+  } else {
+    bwd_apply8_kernel<TR, TG, TO><<<q.grid(), NT, 0, s>>>(
+        raw, grad, gst, gamma, beta, out, q.HW, q.C, q.G, q.R, mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- f32: FMA products into workspaces, the 16-byte passes around them ---
+
+float* const NO_F32 = nullptr;
+
+// The weight gradient a^T @ d over M rows of a [M, Ca] and d [M, Cd],
+// in chunks of kc rows, folded in order into dw [Ca, Cd].
+int weight_grad_f32(const float* a, const float* d, float* dw_part,
+                    float* dw, int M, int Ca, int Cd, int chunks, int kc,
+                    cudaStream_t s) {
+  const Gemm p = gemm_args(Ca, Cd, M, 1, Ca, Cd, 1, Cd, chunks, kc);
+  CHECK(gemm(a, d, dw_part, p, chunks, s));
+  const size_t n = (size_t)Ca * Cd;
+  fold_kernel<<<(int)((n + 255) / 256), 256, 0, s>>>(dw_part, dw, chunks, n);
+  return (int)cudaGetLastError();
+}
+
+// #7 in f32.  Scratch: ws [B*HW, Cout], part [B][T][2][Cout] (R-row
+// tiles), gst [B][G][4].
+int conv_gn_fwd_f32(const float* x, const float* w, const float* gamma,
+                    const float* beta, float* y, float* ws, float* part,
+                    float* gst, int B, int HW, int Cin, int Cout, int G,
+                    int R, float eps, int relu, cudaStream_t s) {
+  const Rows q(B, HW, Cout, G, R);
+  CHECK(gemm(x, w, ws,
+             gemm_args(B * HW, Cout, Cin, Cin, 1, Cout, 1, Cout, 1, 0), 1,
+             s));
+  CHECK(norm_stats(ws, part, gst, q, eps, s));
+  return norm_apply(ws, gst, gamma, beta, NO_F32, y, q,
+                    relu ? APPLY_RELU : APPLY_PLAIN, s);
+}
+
+// #8 in f32.  Scratch: ws [B*HW, Cout], dyb [B*HW, Cout], part [2] x
+// [B][T][2][Cout] (the product's sums, then the gradient's), per_image
+// [2][B][Cout], dw_part [chunks][Cin][Cout], gst [B][G][4].
+int conv_gn_bwd_f32(const float* x, const float* w, const float* gamma,
+                    const float* beta, const float* dy, float* dx,
+                    float* dw, float* dgamma, float* dbeta, float* ws,
+                    float* dyb, float* part, float* per_image,
+                    float* dw_part, float* gst, int B, int HW, int Cin,
+                    int Cout, int G, int R, int chunks, int kc, float eps,
+                    int relu, cudaStream_t s) {
+  const int M = B * HW;
+  const Rows q(B, HW, Cout, G, R);
+  // recompute the forward's product and its statistics
+  CHECK(gemm(x, w, ws, gemm_args(M, Cout, Cin, Cin, 1, Cout, 1, Cout, 1, 0),
+             1, s));
+  CHECK(norm_stats(ws, part, gst, q, eps, s));
+  CHECK(norm_grad(ws, dy, gst, gamma, beta, NO_F32, NO_F32, dyb,
+                  part + q.part(), per_image, dgamma, dbeta, q,
+                  relu ? MASK_RELU : MASK_NONE, s));
+  // dx = dy_raw @ w^T
+  CHECK(gemm(dyb, w, dx, gemm_args(M, Cin, Cout, Cout, 1, 1, Cout, Cin, 1, 0),
+             1, s));
+  return weight_grad_f32(x, dyb, dw_part, dw, M, Cin, Cout, chunks, kc, s);
+}
+
+// #9 in f32.  Scratch: hb [B*HW, Cm], ws [B*HW, Cout], part2 [B][T][2]
+// [Cm], part3 [B][T][2][Cout] (R-row tiles), gst2 [B][G2][4], gst3
+// [B][G3][4].
+int tail_fwd_f32(const float* y2, const float* w, const float* g2,
+                 const float* b2, const float* g3, const float* b3,
+                 const float* res, float* out, float* hb, float* ws,
+                 float* part2, float* part3, float* gst2, float* gst3, int B,
+                 int HW, int Cm, int Cout, int G2, int G3, int R, float eps,
+                 cudaStream_t s) {
+  const Rows q2(B, HW, Cm, G2, R), q3(B, HW, Cout, G3, R);
+  CHECK(norm_stats(y2, part2, gst2, q2, eps, s));
+  CHECK(norm_apply(y2, gst2, g2, b2, NO_F32, hb, q2, APPLY_RELU, s));
+  CHECK(gemm(hb, w, ws,
+             gemm_args(B * HW, Cout, Cm, Cm, 1, Cout, 1, Cout, 1, 0), 1, s));
+  CHECK(norm_stats(ws, part3, gst3, q3, eps, s));
+  return norm_apply(ws, gst3, g3, b3, res, out, q3, APPLY_RESID_RELU, s);
+}
+
+// #10 in f32.  Scratch: hb [B*HW, Cm], ws3 [B*HW, Cout], dy3b [B*HW,
+// Cout], ws2 [B*HW, Cm], part2 [2][B][T][2][Cm], part3 [2][B][T][2]
+// [Cout], per_image2 [2][B][Cm], per_image3 [2][B][Cout], dw_part
+// [chunks][Cm][Cout], gst2 [B][G2][4], gst3 [B][G3][4].
+int tail_bwd_f32(const float* y2, const float* w, const float* g2,
+                 const float* b2, const float* g3, const float* b3,
+                 const float* res, const float* dout, float* dy2, float* dw,
+                 float* dg2, float* db2, float* dg3, float* db3, float* dres,
+                 float* hb, float* ws3, float* dy3b, float* ws2,
+                 float* part2, float* part3, float* per_image2,
+                 float* per_image3, float* dw_part, float* gst2,
+                 float* gst3, int B, int HW, int Cm, int Cout, int G2,
+                 int G3, int R, int chunks, int kc, float eps,
+                 cudaStream_t s) {
+  const int M = B * HW;
+  const Rows q2(B, HW, Cm, G2, R), q3(B, HW, Cout, G3, R);
+  // recompute the forward chain up to y3
+  CHECK(norm_stats(y2, part2, gst2, q2, eps, s));
+  CHECK(norm_apply(y2, gst2, g2, b2, NO_F32, hb, q2, APPLY_RELU, s));
+  CHECK(gemm(hb, w, ws3, gemm_args(M, Cout, Cm, Cm, 1, Cout, 1, Cout, 1, 0),
+             1, s));
+  CHECK(norm_stats(ws3, part3, gst3, q3, eps, s));
+  // GN3's backward through the residual ReLU: dres, then dy3
+  CHECK(norm_grad(ws3, dout, gst3, g3, b3, res, dres, dy3b, part3 + q3.part(),
+                  per_image3, dg3, db3, q3, MASK_RESID, s));
+  CHECK(weight_grad_f32(hb, dy3b, dw_part, dw, M, Cm, Cout, chunks, kc, s));
+  // dh = dy3 @ w^T, then GN2's backward through h's ReLU
+  CHECK(gemm(dy3b, w, ws2, gemm_args(M, Cm, Cout, Cout, 1, 1, Cout, Cm, 1, 0),
+             1, s));
+  return norm_grad(y2, ws2, gst2, g2, b2, NO_F32, NO_F32, dy2,
+                   part2 + q2.part(), per_image2, dg2, db2, q2, MASK_RELU, s);
+}
+
+// ---- bf16: the products on the tensor cores (fused_gemm.cuh) -------------
+
+bf16* const NO_BF16 = nullptr;
+
+// #7 in bf16.  P1: y = x @ w and its statistics (y kept in f32 in ws
+// where the plan stores it), the fold, then the apply: a 16-byte pass
+// over ws (store), or P2, the same product with the apply in its
+// epilogue (recompute; P1 and P2 run the same body in the same depth
+// order, so the statistics are those of the y they are applied to).
+// Scratch: ws [B*HW, Cout] f32 (null unless store); part [B][T][2][Cout]
+// (T 64-row tiles); gst [B][G][4].
+int conv_gn_fwd_tc(const bf16* x, const bf16* w, const float* gamma,
+                   const float* beta, bf16* y, float* ws, float* part,
+                   float* gst, int B, int HW, int Cin, int Cout, int G,
+                   int R, int store, float eps, int relu, cudaStream_t s) {
+  const float count = (float)HW * (float)(Cout / G);
+  const int mode = relu ? APPLY_RELU : APPLY_PLAIN;
+  CHECK(tc::rows_times_w(x, w, B, HW, Cin, Cout, tc::StatsEpi{part, Cout},
+                         tc::Io{nullptr, nullptr, store ? ws : nullptr}, s));
+  CHECK(group_stats(part, tc::tiles64(HW), B, Cout, G, count, eps, gst, s));
+  if (store)
+    return norm_apply(ws, gst, gamma, beta, NO_BF16, y,
+                      Rows(B, HW, Cout, G, R), mode, s);
+  return tc::rows_times_w(x, w, B, HW, Cin, Cout,
+                          tc::ApplyEpi{gst, gamma, beta, Cout, G, mode},
+                          tc::Io{nullptr, nullptr, y}, s);
 }
 
 // dw = a^T @ d over every row, in chunks folded in order.
@@ -1050,15 +756,9 @@ int conv_gn_bwd_tc(const bf16* x, const bf16* w, const float* gamma,
                          tc::Io{nullptr, nullptr, store ? ws : nullptr}, s));
   CHECK(group_stats(part, T, B, Cout, G, count, eps, gst, s));
   if (store) {
-    const Rows q(B, HW, Cout, G, R);
-    bwd_stats8_kernel<float, bf16><<<q.grid(), NT, red8_smem(Cout), s>>>(
-        ws, dy, gst, gamma, beta, partd, HW, Cout, G, R, q.ntiles, mask);
-    CHECK((int)cudaGetLastError());
-    CHECK(group_grad(partd, q.ntiles, B, Cout, G, count, gamma, per_image,
-                     dgamma, dbeta, gst, s));
-    bwd_apply8_kernel<float, bf16><<<q.grid(), NT, 0, s>>>(
-        ws, dy, gst, gamma, beta, dyb, HW, Cout, G, R, mask);
-    CHECK((int)cudaGetLastError());
+    CHECK(norm_grad(ws, dy, gst, gamma, beta, NO_BF16, NO_BF16, dyb, partd,
+                    per_image, dgamma, dbeta, Rows(B, HW, Cout, G, R), mask,
+                    s));
   } else {
     // P2, P3: y recomputed for the gradient's sums, then for dy_raw
     CHECK(tc::rows_times_w(x, w, B, HW, Cin, Cout,
@@ -1076,6 +776,35 @@ int conv_gn_bwd_tc(const bf16* x, const bf16* w, const float* gamma,
                           tc::Io{nullptr, nullptr, dx}, s));
   return weight_grad_tc(x, dyb, dw_part, dw, (long long)B * HW, Cin, Cout,
                         chunks, kc, s);
+}
+
+// #9 in bf16.  GN2 by the 16-byte passes: y2's statistics, then h =
+// relu(GN2(y2)) rounded once to bf16; then #7's two passes on h @ w with
+// the residual and the final ReLU in the apply.  Scratch: hb [B*HW, Cm];
+// ws [B*HW, Cout] f32 (null unless store); part2 [B][T2][2][Cm] (R-row
+// tiles), part3 [B][T][2][Cout] (64-row tiles); gst2 [B][G2][4], gst3
+// [B][G3][4].
+int tail_fwd_tc(const bf16* y2, const bf16* w, const float* g2,
+                const float* b2, const float* g3, const float* b3,
+                const bf16* res, bf16* out, bf16* hb, float* ws,
+                float* part2, float* part3, float* gst2, float* gst3, int B,
+                int HW, int Cm, int Cout, int G2, int G3, int R, int store,
+                float eps, cudaStream_t s) {
+  const Rows q2(B, HW, Cm, G2, R);
+  const float count3 = (float)HW * (float)(Cout / G3);
+  CHECK(norm_stats(y2, part2, gst2, q2, eps, s));
+  CHECK(norm_apply(y2, gst2, g2, b2, NO_BF16, hb, q2, APPLY_RELU, s));
+  CHECK(tc::rows_times_w(hb, w, B, HW, Cm, Cout, tc::StatsEpi{part3, Cout},
+                         tc::Io{nullptr, nullptr, store ? ws : nullptr}, s));
+  CHECK(group_stats(part3, tc::tiles64(HW), B, Cout, G3, count3, eps, gst3,
+                    s));
+  if (store)
+    return norm_apply(ws, gst3, g3, b3, res, out, Rows(B, HW, Cout, G3, R),
+                      APPLY_RESID_RELU, s);
+  return tc::rows_times_w(hb, w, B, HW, Cm, Cout,
+                          tc::ApplyEpi{gst3, g3, b3, Cout, G3,
+                                       APPLY_RESID_RELU},
+                          tc::Io{res, nullptr, out}, s);
 }
 
 // #10 in bf16.  Scratch: hb [B*HW, Cm], dy3b [B*HW, Cout], ws2 [B*HW, Cm]
@@ -1097,13 +826,8 @@ int tail_bwd_tc(const bf16* y2, const bf16* w, const float* g2,
   const Rows q2(B, HW, Cm, G2, R);
   const float count3 = (float)HW * (float)(Cout / G3);
   // GN2 recomputed: y2's statistics, then h = relu(GN2(y2)) in bf16
-  stats8_kernel<bf16><<<q2.grid(), NT, red8_smem(Cm), s>>>(y2, part2, HW, Cm,
-                                                           R, q2.ntiles);
-  CHECK((int)cudaGetLastError());
-  CHECK(group_stats(part2, q2.ntiles, B, Cm, G2, q2.count, eps, gst2, s));
-  apply8_kernel<bf16, bf16><<<q2.grid(), NT, 0, s>>>(y2, gst2, g2, b2, hb,
-                                                     HW, Cm, G2, R, 1);
-  CHECK((int)cudaGetLastError());
+  CHECK(norm_stats(y2, part2, gst2, q2, eps, s));
+  CHECK(norm_apply(y2, gst2, g2, b2, NO_BF16, hb, q2, APPLY_RELU, s));
   // P1: y3 = h @ w and GN3's statistics
   CHECK(tc::rows_times_w(hb, w, B, HW, Cm, Cout, tc::StatsEpi{part3, Cout},
                          tc::Io{nullptr, nullptr, nullptr}, s));
@@ -1131,7 +855,7 @@ int tail_bwd_tc(const bf16* y2, const bf16* w, const float* g2,
   CHECK(group_grad(partd2, T, B, Cm, G2, q2.count, g2, per_image2, dg2, db2,
                    gst2, s));
   // GN2's apply: dy2
-  bwd_apply8_kernel<bf16, float><<<q2.grid(), NT, 0, s>>>(
+  bwd_apply8_kernel<bf16, float, bf16><<<q2.grid(), NT, 0, s>>>(
       y2, ws2, gst2, g2, b2, dy2, HW, Cm, G2, R, MASK_NONE);
   return (int)cudaGetLastError();
 }
@@ -1141,32 +865,33 @@ int tail_bwd_tc(const bf16* y2, const bf16* w, const float* g2,
 
 using namespace fused_block;
 
-// dtype: 0 float32, 1 bfloat16.  Scratch (allocated by the caller):
-// ws [B*HW, Cout] f32; part [B][ceil(HW/R)][2][Cout] f32.  Returns a
+// dtype: 0 float32, 1 bfloat16.  Scratch (allocated by the caller, in the
+// order of ops/fused_block.py fwd_plan): f32: ws [B*HW, Cout] f32, part
+// [B][T][2][Cout] f32 (R-row tiles), gst [B][G][4] f32; store unused.
+// bf16: conv_gn_fwd_tc's scratch (ws null unless store).  Returns a
 // cudaError_t (or -1 for an unknown dtype).
 extern "C" int conv_gn_fwd(const void* x, const void* w, const float* gamma,
                            const float* beta, void* y, float* ws, float* part,
-                           int B, int HW, int Cin, int Cout, int G, int R,
-                           float eps, int relu, int dtype, void* stream) {
+                           float* gst, int B, int HW, int Cin, int Cout,
+                           int G, int R, int store, float eps, int relu,
+                           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return conv_gn_fwd_t(static_cast<const float*>(x),
-                         static_cast<const float*>(w), gamma, beta,
-                         static_cast<float*>(y), ws, part, B, HW, Cin, Cout,
-                         G, R, eps, relu, s);
+    return conv_gn_fwd_f32(static_cast<const float*>(x),
+                           static_cast<const float*>(w), gamma, beta,
+                           static_cast<float*>(y), ws, part, gst, B, HW, Cin,
+                           Cout, G, R, eps, relu, s);
   if (dtype == 1)
-    return conv_gn_fwd_t(static_cast<const __nv_bfloat16*>(x),
-                         static_cast<const __nv_bfloat16*>(w), gamma, beta,
-                         static_cast<__nv_bfloat16*>(y), ws, part, B, HW, Cin,
-                         Cout, G, R, eps, relu, s);
+    return conv_gn_fwd_tc(static_cast<const bf16*>(x),
+                          static_cast<const bf16*>(w), gamma, beta,
+                          static_cast<bf16*>(y), ws, part, gst, B, HW, Cin,
+                          Cout, G, R, store, eps, relu, s);
   return -1;
 }
 
-// f32: scratch ws [B*HW, Cout] f32, dyb [B*HW, Cout], part [2] x [B][T]
-// [2][Cout] f32 (R-row tiles), per_image [2][B][Cout] f32, dw_part
-// [chunks][Cin][Cout] f32; gst and store unused.  bf16: the tensor-core
-// plan, conv_gn_bwd_tc's scratch (ws null unless store).  chunks, kc: the
-// weight gradient's row chunks (kc a multiple of 64).
+// f32: conv_gn_bwd_f32's scratch; store unused.  bf16: conv_gn_bwd_tc's
+// (ws null unless store).  chunks, kc: the weight gradient's row chunks
+// (kc a multiple of 64).
 extern "C" int conv_gn_bwd(const void* x, const void* w, const float* gamma,
                            const float* beta, const void* dy, void* dx,
                            float* dw, float* dgamma, float* dbeta, float* ws,
@@ -1177,11 +902,11 @@ extern "C" int conv_gn_bwd(const void* x, const void* w, const float* gamma,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return conv_gn_bwd_t(
+    return conv_gn_bwd_f32(
         static_cast<const float*>(x), static_cast<const float*>(w), gamma,
         beta, static_cast<const float*>(dy), static_cast<float*>(dx), dw,
         dgamma, dbeta, ws, static_cast<float*>(dyb), part, per_image, dw_part,
-        B, HW, Cin, Cout, G, R, chunks, kc, eps, relu, s);
+        gst, B, HW, Cin, Cout, G, R, chunks, kc, eps, relu, s);
   if (dtype == 1)
     return conv_gn_bwd_tc(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), gamma, beta,
@@ -1191,35 +916,33 @@ extern "C" int conv_gn_bwd(const void* x, const void* w, const float* gamma,
   return -1;
 }
 
-// Scratch: hb [B*HW, Cm] in y2's dtype, ws [B*HW, Cout] f32, part2
-// [B][T][2][Cm], part3 [B][T][2][Cout] f32.
+// f32: tail_fwd_f32's scratch; store unused.  bf16: tail_fwd_tc's (ws
+// null unless store).
 extern "C" int tail_fwd(const void* y2, const void* w, const float* g2,
                         const float* b2, const float* g3, const float* b3,
                         const void* res, void* out, void* hb, float* ws,
-                        float* part2, float* part3, int B, int HW, int Cm,
-                        int Cout, int G2, int G3, int R, float eps, int dtype,
+                        float* part2, float* part3, float* gst2, float* gst3,
+                        int B, int HW, int Cm, int Cout, int G2, int G3,
+                        int R, int store, float eps, int dtype,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tail_fwd_t(static_cast<const float*>(y2),
-                      static_cast<const float*>(w), g2, b2, g3, b3,
-                      static_cast<const float*>(res), static_cast<float*>(out),
-                      static_cast<float*>(hb), ws, part2, part3, B, HW, Cm,
-                      Cout, G2, G3, R, eps, s);
+    return tail_fwd_f32(static_cast<const float*>(y2),
+                        static_cast<const float*>(w), g2, b2, g3, b3,
+                        static_cast<const float*>(res),
+                        static_cast<float*>(out), static_cast<float*>(hb), ws,
+                        part2, part3, gst2, gst3, B, HW, Cm, Cout, G2, G3, R,
+                        eps, s);
   if (dtype == 1)
-    return tail_fwd_t(static_cast<const __nv_bfloat16*>(y2),
-                      static_cast<const __nv_bfloat16*>(w), g2, b2, g3, b3,
-                      static_cast<const __nv_bfloat16*>(res),
-                      static_cast<__nv_bfloat16*>(out),
-                      static_cast<__nv_bfloat16*>(hb), ws, part2, part3, B,
-                      HW, Cm, Cout, G2, G3, R, eps, s);
+    return tail_fwd_tc(static_cast<const bf16*>(y2),
+                       static_cast<const bf16*>(w), g2, b2, g3, b3,
+                       static_cast<const bf16*>(res), static_cast<bf16*>(out),
+                       static_cast<bf16*>(hb), ws, part2, part3, gst2, gst3,
+                       B, HW, Cm, Cout, G2, G3, R, store, eps, s);
   return -1;
 }
 
-// f32: scratch hb [B*HW, Cm] and dy3b [B*HW, Cout], ws3 [B*HW, Cout] and
-// ws2 [B*HW, Cm] f32, part2 [2][B][T][2][Cm], part3 [2][B][T][2][Cout],
-// per_image2 [2][B][Cm], per_image3 [2][B][Cout], dw_part [chunks][Cm]
-// [Cout] f32; gst2, gst3 unused.  bf16: tail_bwd_tc's scratch (ws3 null).
+// f32: tail_bwd_f32's scratch.  bf16: tail_bwd_tc's (ws3 null).
 extern "C" int tail_bwd(const void* y2, const void* w, const float* g2,
                         const float* b2, const float* g3, const float* b3,
                         const void* res, const void* dout, void* dy2,
@@ -1232,13 +955,14 @@ extern "C" int tail_bwd(const void* y2, const void* w, const float* g2,
                         float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tail_bwd_t(
+    return tail_bwd_f32(
         static_cast<const float*>(y2), static_cast<const float*>(w), g2, b2,
         g3, b3, static_cast<const float*>(res),
         static_cast<const float*>(dout), static_cast<float*>(dy2), dw, dg2,
         db2, dg3, db3, static_cast<float*>(dres), static_cast<float*>(hb),
         ws3, static_cast<float*>(dy3b), ws2, part2, part3, per_image2,
-        per_image3, dw_part, B, HW, Cm, Cout, G2, G3, R, chunks, kc, eps, s);
+        per_image3, dw_part, gst2, gst3, B, HW, Cm, Cout, G2, G3, R, chunks,
+        kc, eps, s);
   if (dtype == 1)
     return tail_bwd_tc(
         static_cast<const bf16*>(y2), static_cast<const bf16*>(w), g2, b2, g3,

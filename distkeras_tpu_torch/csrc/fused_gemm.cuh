@@ -76,6 +76,7 @@ constexpr int BOX_BYTES = 8192;  // one box: 64 rows of 128 bytes
 constexpr int SMEM_BUDGET = 112 * 1024;
 
 enum { MASK_NONE = 0, MASK_RELU = 1, MASK_RESID = 2 };
+enum { APPLY_PLAIN = 0, APPLY_RELU = 1, APPLY_RESID_RELU = 2 };
 
 // ---- PTX ----------------------------------------------------------------
 
@@ -593,7 +594,8 @@ __device__ __forceinline__ void load_cols(const Frag& f, const float* gst,
 // and zeros add nothing to the sums; the output's are clipped by TMA.
 
 // The product y and its per-tile channel sums of y and y^2 -> part[B][T]
-// [2][C]; y itself in f32 where the output map is set (#8's kept y).
+// [2][C]; y itself in f32 where the output map is set (a kept y of #7,
+// #8 or #9).
 struct StatsEpi {
   static constexpr int kIn = 0, kOutBytes = 4;
   float* part;
@@ -742,6 +744,48 @@ struct StoreEpi {
       for (int h = 0; h < 2; ++h)
         tile_put(f.out, L.row(h), L.col(j), __nv_bfloat16(),
                  acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+};
+
+// The forward's GroupNorm on the recomputed product y (#7's and #9's
+// second pass): (y - mean) * inv * gamma + beta from the folded rows
+// gst, then per mode a ReLU, or the residual (input 0) added and a ReLU;
+// rounded once to bf16 into the output tile.
+struct ApplyEpi {
+  static constexpr int kIn = 1, kOutBytes = 2;
+  const float* gst;
+  const float* gamma;
+  const float* beta;
+  int C, G, mode;
+  template <int BN>
+  __device__ __forceinline__ void begin(const Frag& f) const {
+    load_cols<BN>(f, gst, gamma, beta, C, G, false);
+  }
+  template <int BN>
+  __device__ __forceinline__ void run(float (&acc)[BN / 2],
+                                      const Frag& f) const {
+    const Lane L(f);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = L.row(h), c = L.col(j);
+        const float2 rs = mode == APPLY_RESID_RELU ? tile_bf2(f.in[0], r, c)
+                                                   : make_float2(0.f, 0.f);
+        const float rv[2] = {rs.x, rs.y};
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* p = f.cols + c + e;
+          const float xh = __fmul_rn(__fsub_rn(acc[4 * j + 2 * h + e], p[0]),
+                                     p[BN]);
+          float z = __fadd_rn(__fmul_rn(xh, p[2 * BN]), p[3 * BN]);
+          if (mode == APPLY_RESID_RELU) z = __fadd_rn(z, rv[e]);
+          o[e] = mode == APPLY_PLAIN ? z : fmaxf(z, 0.f);
+        }
+        tile_put(f.out, r, c, __nv_bfloat16(), o[0], o[1]);
+      }
+    }
   }
 };
 

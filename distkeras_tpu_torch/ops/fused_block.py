@@ -39,17 +39,22 @@ to the plain versions.  ``conv_gn_fwd_launches``,
 ``tail_bwd_launches`` count calls of the four kernel entry points
 (each launches several grids), and nothing else.
 
-The bf16 backwards run on one tensor-core product body
+The bf16 kernels run every product on one tensor-core body
 (``csrc/fused_gemm.cuh``: wgmma fed by TMA, the GroupNorm work in its
-epilogue).  What bounded them was bytes: f32 workspaces of the product
-written once and read three times.  Their pass plans (``bwd_plan``)
-write an f32 intermediate only where that takes less time than
-recomputing it on the tensor cores from its bf16 input: the tail keeps
-no ``[B*HW, C_out]`` f32 workspace, and ``conv_gn_bwd`` recomputes its
-product only where the input is narrow (``_store_y``: on ResNet-50's
-path, the two calls that read 64 channels).  TMA needs 16-byte rows,
-so a bf16 CUDA backward takes channel counts that are multiples of 8
-(the forwards, without TMA, take any).
+epilogue).  What bounds them is bytes: an f32 workspace of the product
+written once and read again.  Each call's pass plan (``fwd_plan``,
+``bwd_plan``) writes an f32 intermediate only where that takes less
+time than recomputing it on the tensor cores from its bf16 input.  An
+image's statistics need all of its rows before anything is applied, so
+a forward is two passes with a fold between them: the second applies
+the norm either to the kept f32 product (16-byte passes) or to the
+product computed again with the apply in its epilogue
+(``_fwd_store``).  The tail's backward keeps no ``[B*HW, C_out]`` f32
+workspace, and ``conv_gn_bwd`` recomputes its product only where the
+input is narrow (``_store_y``: on ResNet-50's path, the two calls that
+read 64 channels).  f32 keeps the FMA products with an f32 workspace.
+TMA and the 16-byte passes need 16-byte vectors of channels, so every
+CUDA call takes channel counts that are multiples of 8.
 """
 
 from __future__ import annotations
@@ -79,9 +84,15 @@ ROW_TILE = 64
 #: byte (about 330 TFLOP/s beside 3.35 TB/s): where #8's two plans, timed
 #: at ResNet-50's 20 calls on an H100, trade places
 PRODUCT_FLOPS_PER_BYTE = 100
-#: bf16 channels come in 16-byte vectors (TMA's row stride, the passes'
-#: loads)
-BF16_CHANNEL_STEP = 8
+#: the same for the forwards' one extra product (``_fwd_store``): where
+#: their two plans, timed at the same calls, trade places (recomputing
+#: won at 256 -> 128 over 3136 rows, which needs more than 128; keeping y
+#: won at 512 -> 1024 over 196 rows and the 512 -> 2048 tail, which need
+#: at most 146 and 136)
+FWD_PRODUCT_FLOPS_PER_BYTE = 132
+#: channels come in vectors of this many (16 bytes of bf16: TMA's row
+#: stride and the passes' loads; 32 bytes of f32, two loads)
+CHANNEL_STEP = 8
 
 #: forward kernel launches of ``fused_conv1x1_gn`` since the last reset
 conv_gn_fwd_launches = 0
@@ -241,9 +252,11 @@ def _check(rows, w, params, groups_by_width):
             raise ValueError(f"channels={c} not divisible by groups={g}")
 
 
-def _check_kernel_inputs(*tensors, tma=False):
-    """Refuse what the kernels do not take; ``tma``: the bf16 backwards,
-    whose operands TMA brings in, also need 16-byte rows."""
+def _check_kernel_inputs(*tensors):
+    """Refuse what the kernels do not take: more than ``MAX_CHANNELS``,
+    other than contiguous, or rows that are not whole 16-byte vectors of
+    ``CHANNEL_STEP`` channels at 16-byte aligned addresses (TMA's rows,
+    the passes' loads)."""
     for t in tensors:
         if t.shape[-1] > MAX_CHANNELS:
             raise ValueError(f"the CUDA kernels take at most {MAX_CHANNELS} "
@@ -251,12 +264,11 @@ def _check_kernel_inputs(*tensors, tma=False):
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels need contiguous [B, HW, C] "
                              "inputs (channels-last memory)")
-        if tma and t.dtype == torch.bfloat16 and (
-                t.shape[-1] % BF16_CHANNEL_STEP or t.data_ptr() % 16):
+        if t.shape[-1] % CHANNEL_STEP or t.data_ptr() % 16:
             raise ValueError(
-                f"the bf16 CUDA backwards need channel counts that are "
-                f"multiples of {BF16_CHANNEL_STEP} and 16-byte aligned "
-                f"rows (TMA); got {t.shape[-1]} channels at address "
+                f"the CUDA kernels need channel counts that are multiples "
+                f"of {CHANNEL_STEP} and 16-byte aligned rows (TMA, 16-byte "
+                f"loads); got {t.shape[-1]} channels at address "
                 f"{t.data_ptr():#x}")
 
 
@@ -285,6 +297,61 @@ def _store_y(cin: int, cout: int) -> bool:
     return 4 * cin + 4 * cin * cout / PRODUCT_FLOPS_PER_BYTE >= 12 * cout
 
 
+def _fwd_store(cin: int, cout: int) -> bool:
+    """Whether a bf16 forward keeps its product ``y = a @ w`` (``a``: #7's
+    x, #9's h) in f32 between its two passes: one f32 write and one read
+    (8 ``cout`` bytes a row) against computing it once more from bf16
+    ``a``: one more read (2 ``cin`` bytes a row) and one more product (2
+    ``cin cout`` operations a row, at ``FWD_PRODUCT_FLOPS_PER_BYTE``).
+    Both plans move the rest alike (P1's read, the output, #9's
+    residual)."""
+    return 2 * cin + 2 * cin * cout / FWD_PRODUCT_FLOPS_PER_BYTE >= 8 * cout
+
+
+def fwd_plan(kind: str, b: int, hw: int, cin: int, cout: int, groups,
+             dtype, store: bool | None = None) -> dict:
+    """The pass plan of one forward kernel call: ``kind`` "conv" (``cin``
+    -> ``cout``, ``groups`` an int) or "tail" (``cin`` = C_m, ``groups``
+    = (G2, G3)).  Returns ``store`` (the product kept in f32 for a
+    16-byte apply pass, else recomputed with the apply in its epilogue),
+    ``rows`` and ``tiles`` (the row tiles of the passes outside a
+    product), ``row_tiles`` (the products' 64-row tiles of an image) and
+    ``scratch``: ``(name, shape, dtype)`` of every buffer the kernel
+    takes, in the C order.  f32 keeps the FMA product and its workspace;
+    bf16 is the tensor-core plan (``csrc/fused_block.cu``:
+    ``conv_gn_fwd_tc``, ``tail_fwd_tc``).  ``store`` overrides the rule
+    for bf16 (to time both plans); None follows it."""
+    f32 = torch.float32
+    bf16 = dtype == torch.bfloat16
+    row_tiles = -(-hw // ROW_TILE)
+    store = (_fwd_store(cin, cout) if store is None else store) \
+        if bf16 else True
+    ws = ("ws", (b, hw, cout), f32) if store else None
+    # the product's statistics: per 64-row tile in bf16 (its epilogue),
+    # per R-row tile in f32 (a 16-byte pass)
+    if kind == "conv":
+        rows = _rows_per_tile(hw, cout)
+        tiles = -(-hw // rows)
+        scratch = [ws, ("part", (b, row_tiles if bf16 else tiles, 2, cout),
+                        f32),
+                   ("gstats", (b, groups, 4), f32)]
+    elif kind == "tail":
+        cm = cin
+        g2, g3 = groups
+        rows = _rows_per_tile(hw, max(cm, cout))
+        tiles = -(-hw // rows)
+        scratch = [("hb", (b, hw, cm), dtype), ws,
+                   ("part2", (b, tiles, 2, cm), f32),
+                   ("part3", (b, row_tiles if bf16 else tiles, 2, cout),
+                    f32),
+                   ("gstats2", (b, g2, 4), f32),
+                   ("gstats3", (b, g3, 4), f32)]
+    else:
+        raise ValueError(f"kind must be 'conv' or 'tail'; got {kind!r}")
+    return {"store": store, "rows": rows, "tiles": tiles,
+            "row_tiles": row_tiles, "scratch": scratch}
+
+
 def bwd_plan(kind: str, b: int, hw: int, cin: int, cout: int, groups,
              dtype, store: bool | None = None) -> dict:
     """The pass plan of one backward kernel call: ``kind`` "conv" (``cin``
@@ -294,8 +361,9 @@ def bwd_plan(kind: str, b: int, hw: int, cin: int, cout: int, groups,
     ``row_tiles`` (the products' 64-row tiles of an image), the weight
     gradient's ``chunks`` and ``kc`` rows each, and ``scratch``: ``(name,
     shape, dtype)`` of every buffer the kernel takes, in the C order.
-    f32 keeps the FMA chain and its workspaces; bf16 is the tensor-core
-    plan (``csrc/fused_block.cu``: ``conv_gn_bwd_tc``, ``tail_bwd_tc``).
+    f32 keeps the FMA products and their workspaces; bf16 is the
+    tensor-core plan (``csrc/fused_block.cu``: ``conv_gn_bwd_tc``,
+    ``tail_bwd_tc``).
     ``store`` overrides the byte rule for a bf16 conv (to time both
     plans); None follows it."""
     f32 = torch.float32
@@ -322,7 +390,8 @@ def bwd_plan(kind: str, b: int, hw: int, cin: int, cout: int, groups,
                        ("dyb", (b, hw, cout), dtype),
                        ("part", (2, b, tiles, 2, cout), f32),
                        ("per_image", (2, b, cout), f32),
-                       ("dw_part", (chunks, cin, cout), f32), None]
+                       ("dw_part", (chunks, cin, cout), f32),
+                       ("gstats", (b, groups, 4), f32)]
     elif kind == "tail":
         if store is not None:
             raise ValueError("the tail has one plan; store must be None")
@@ -353,7 +422,9 @@ def bwd_plan(kind: str, b: int, hw: int, cin: int, cout: int, groups,
                        ("part3", (2, b, tiles, 2, cout), f32),
                        ("per_image2", (2, b, cm), f32),
                        ("per_image3", (2, b, cout), f32),
-                       ("dw_part", (chunks, cm, cout), f32), None, None]
+                       ("dw_part", (chunks, cm, cout), f32),
+                       ("gstats2", (b, g2, 4), f32),
+                       ("gstats3", (b, g3, 4), f32)]
     else:
         raise ValueError(f"kind must be 'conv' or 'tail'; got {kind!r}")
     return {"store": store, "rows": rows, "tiles": tiles,
@@ -384,21 +455,21 @@ def _f32(shape, device):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
-def _conv_gn_fwd_kernel(x3, w, gamma, beta, *, groups, eps, relu):
+def _conv_gn_fwd_kernel(x3, w, gamma, beta, *, groups, eps, relu,
+                        store=None):
     global conv_gn_fwd_launches
     _check_kernel_inputs(x3, w, gamma, beta)
     b, hw, cin = x3.shape
     cout = w.shape[1]
-    rows = _rows_per_tile(hw, cout)
-    tiles = -(-hw // rows)
+    plan = fwd_plan("conv", b, hw, cin, cout, groups, x3.dtype, store)
     dev = x3.device
     y = torch.empty((b, hw, cout), dtype=x3.dtype, device=dev)
-    ws = _f32((b, hw, cout), dev)
-    part = _f32((b, tiles, 2, cout), dev)
+    scratch = _scratch(plan, dev)
     _launch(_library().conv_gn_fwd, "conv_gn_fwd", dev,
             x3.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            y.data_ptr(), ws.data_ptr(), part.data_ptr(), b, hw, cin, cout,
-            groups, rows, float(eps), int(relu), _DTYPES[x3.dtype])
+            y.data_ptr(), *_ptrs(scratch), b, hw, cin, cout, groups,
+            plan["rows"], int(plan["store"]), float(eps), int(relu),
+            _DTYPES[x3.dtype])
     conv_gn_fwd_launches += 1
     return y
 
@@ -406,7 +477,7 @@ def _conv_gn_fwd_kernel(x3, w, gamma, beta, *, groups, eps, relu):
 def _conv_gn_bwd_kernel(x3, w, gamma, beta, dy3, *, groups, eps, relu,
                         store=None):
     global conv_gn_bwd_launches
-    _check_kernel_inputs(x3, w, gamma, beta, dy3, tma=True)
+    _check_kernel_inputs(x3, w, gamma, beta, dy3)
     b, hw, cin = x3.shape
     cout = w.shape[1]
     plan = bwd_plan("conv", b, hw, cin, cout, groups, x3.dtype, store)
@@ -425,24 +496,22 @@ def _conv_gn_bwd_kernel(x3, w, gamma, beta, dy3, *, groups, eps, relu,
     return dx, dw, dgamma, dbeta
 
 
-def _tail_fwd_kernel(y2, w, g2, b2, g3, b3, res, *, groups2, groups3, eps):
+def _tail_fwd_kernel(y2, w, g2, b2, g3, b3, res, *, groups2, groups3, eps,
+                     store=None):
     global tail_fwd_launches
     _check_kernel_inputs(y2, w, g2, b2, g3, b3, res)
     b, hw, cm = y2.shape
     cout = w.shape[1]
-    rows = _rows_per_tile(hw, max(cm, cout))
-    tiles = -(-hw // rows)
+    plan = fwd_plan("tail", b, hw, cm, cout, (groups2, groups3), y2.dtype,
+                    store)
     dev = y2.device
     out = torch.empty_like(res)
-    hb = torch.empty_like(y2)
-    ws = _f32((b, hw, cout), dev)
-    part2, part3 = _f32((b, tiles, 2, cm), dev), _f32((b, tiles, 2, cout), dev)
+    scratch = _scratch(plan, dev)
     _launch(_library().tail_fwd, "tail_fwd", dev,
             y2.data_ptr(), w.data_ptr(), g2.data_ptr(), b2.data_ptr(),
             g3.data_ptr(), b3.data_ptr(), res.data_ptr(), out.data_ptr(),
-            hb.data_ptr(), ws.data_ptr(), part2.data_ptr(), part3.data_ptr(),
-            b, hw, cm, cout, groups2, groups3, rows, float(eps),
-            _DTYPES[y2.dtype])
+            *_ptrs(scratch), b, hw, cm, cout, groups2, groups3, plan["rows"],
+            int(plan["store"]), float(eps), _DTYPES[y2.dtype])
     tail_fwd_launches += 1
     return out
 
@@ -450,7 +519,7 @@ def _tail_fwd_kernel(y2, w, g2, b2, g3, b3, res, *, groups2, groups3, eps):
 def _tail_bwd_kernel(y2, w, g2, b2, g3, b3, res, dout, *, groups2, groups3,
                      eps):
     global tail_bwd_launches
-    _check_kernel_inputs(y2, w, g2, b2, g3, b3, res, dout, tma=True)
+    _check_kernel_inputs(y2, w, g2, b2, g3, b3, res, dout)
     b, hw, cm = y2.shape
     cout = w.shape[1]
     plan = bwd_plan("tail", b, hw, cm, cout, (groups2, groups3), y2.dtype)
@@ -478,9 +547,9 @@ def _library():
     ptr, int_, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = _build.load("fused_block")
     signatures = {
-        "conv_gn_fwd": [ptr] * 7 + [int_] * 6 + [f32, int_, int_, ptr],
+        "conv_gn_fwd": [ptr] * 8 + [int_] * 7 + [f32, int_, int_, ptr],
         "conv_gn_bwd": [ptr] * 15 + [int_] * 9 + [f32, int_, int_, ptr],
-        "tail_fwd": [ptr] * 12 + [int_] * 7 + [f32, int_, ptr],
+        "tail_fwd": [ptr] * 14 + [int_] * 8 + [f32, int_, ptr],
         "tail_bwd": [ptr] * 26 + [int_] * 9 + [f32, int_, ptr],
     }
     for name, args in signatures.items():

@@ -7,6 +7,7 @@ what it built.  Nothing here needs ``nvcc``; the sources are copied
 under ``tmp_path`` and ``_build._CSRC`` points there.
 """
 
+import re
 import shutil
 
 import pytest
@@ -43,6 +44,41 @@ def test_the_fused_block_includes_the_tensor_core_product_header():
     assert "fused_gemm.cuh" in HEADERS
     text = (_build._CSRC / "fused_block.cu").read_text()
     assert '#include "fused_gemm.cuh"' in text
+
+
+# the one-element norm passes, their per-block folds and the mma.sync
+# product: the forwards and the f32 kernels now run the 16-byte passes
+# and (bf16) the wgmma body
+@pytest.mark.parametrize("name", ["stats_kernel", "apply_kernel",
+                                  "bwd_stats_kernel", "bwd_apply_kernel",
+                                  "gemm_mma_kernel", "mma_bf16", "norm_bwd",
+                                  "norm_smem", "fold_lanes"])
+def test_the_fused_block_no_longer_defines_the_old_passes(name):
+    text = (_build._CSRC / "fused_block.cu").read_text()
+    assert not re.search(rf"\b{name}\b", text)
+
+
+def _function_body(text, name):
+    """The text of C++ function ``name``'s definition, to its closing
+    brace at the start of a line."""
+    start = re.search(rf"^int {name}\(", text, re.M).start()
+    return text[start:text.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("name", ["conv_gn_fwd_tc", "tail_fwd_tc"])
+def test_the_bf16_forwards_run_the_tensor_core_product(name):
+    """#7's and #9's bf16 arms: P1 with the statistics epilogue, P2 with
+    the apply epilogue, both through tc::rows_times_w; the f32 arms keep
+    the FMA product."""
+    text = (_build._CSRC / "fused_block.cu").read_text()
+    body = _function_body(text, name)
+    assert body.count("tc::rows_times_w(") == 2
+    assert "tc::StatsEpi{" in body and "tc::ApplyEpi{" in body
+    entry = _function_body(text.replace('extern "C" int', "int"),
+                           name.replace("_tc", ""))
+    assert f"return {name}(" in entry
+    assert "gemm(" in _function_body(text, name.replace("_tc", "_f32"))
+    assert "struct ApplyEpi" in (_build._CSRC / "fused_gemm.cuh").read_text()
 
 
 @pytest.mark.parametrize("name", SOURCES)
@@ -223,23 +259,120 @@ def test_smoke_ranges_what_each_fused_grid_was_launched_with():
     timing = {("tail", 1): {"bwd_grids": {
                   "StatsEpi_n128_w2": {"ms": 0.1, "smem": 99328,
                                        "registers": 90},
-                  "fold_kernel": {"ms": 0.01}}},
+                  "fold_kernel": {"ms": 0.01}},
+                            "fwd_grids": {
+                  "ApplyEpi_n128_w2": {"ms": 0.1, "smem": 113736,
+                                       "registers": 88},
+                  "apply8_kernel": {"ms": 0.02, "smem": 0,
+                                    "registers": 32}}},
               ("tail", 2): {"bwd_grids": {
                   "StatsEpi_n128_w2": {"ms": 0.2, "smem": 132096,
-                                       "registers": 90}}}}
+                                       "registers": 90}},
+                            "fwd_grids": {
+                  "ApplyEpi_n128_w2": {"ms": 0.2, "smem": 81920,
+                                       "registers": 88}}}}
     assert chip_smoke._launched(timing, "tail", {1: 4, 2: 1}) == {
         "StatsEpi_n128_w2": {"smem": [99328, 132096], "registers": [90, 90]}}
+    # the forwards' grids, read the same way
+    assert chip_smoke._launched(timing, "tail", {1: 4, 2: 1}, "fwd") == {
+        "ApplyEpi_n128_w2": {"smem": [81920, 113736], "registers": [88, 88]},
+        "apply8_kernel": {"smem": [0, 0], "registers": [32, 32]}}
+
+
+def test_smoke_reads_a_grid_a_call_from_a_window_of_calls():
+    """Ten calls of a tail forward in the trace, of which the window lost
+    the first call's first grid and gained one grid of the call before:
+    each grid's time a call is its mean over its launches times its
+    launches a call (group_stats twice), whatever the window's edges."""
+    import chip_smoke
+
+    def ev(name, dur, **args):
+        return {"cat": "kernel", "name": name, "dur": dur, "args": args}
+
+    stats8 = "void fused_block::(anonymous namespace)::stats8_kernel<bf16>"
+    groups = "fused_block::(anonymous namespace)::group_stats_kernel(...)"
+    body = ("void fused_block::tc::gemm_kernel<128, 2, false, true, "
+            "fused_block::tc::ApplyEpi>(...)")
+    events = [ev(groups, 10.0)]                   # the call before's
+    for call in range(10):
+        if call:
+            events.append(ev(stats8, 20.0))
+        events += [ev(groups, 10.0), ev(groups, 12.0),
+                   ev(body, 300.0, **{"shared memory": 113736,
+                                      "registers per thread": 96})]
+    got = chip_smoke._grids_of(events)
+    assert got["stats8_kernel"] == {"ms": pytest.approx(0.02)}
+    assert got["group_stats_kernel"] == {"ms": pytest.approx(
+        (10.0 * 11 + 12.0 * 10) / 21 * 2 / 1e3)}
+    assert got["ApplyEpi_n128_w2"] == {"ms": pytest.approx(0.3),
+                                       "smem": 113736, "registers": 96}
 
 
 def test_smoke_weighs_both_conv_plans_by_launches():
     import chip_smoke
 
     timing = {("conv", "a"): {"bwd_plan": "store", "bwd_ms": 1.0,
-                              "bwd_other_plan_ms": 2.0},
+                              "bwd_other_plan_ms": 2.0,
+                              "fwd_plan": "recompute", "fwd_ms": 0.5,
+                              "fwd_other_plan_ms": 0.6},
               ("conv", "b"): {"bwd_plan": "store", "bwd_ms": 4.0,
-                              "bwd_other_plan_ms": 2.0},
+                              "bwd_other_plan_ms": 2.0,
+                              "fwd_plan": "store", "fwd_ms": 0.2,
+                              "fwd_other_plan_ms": 0.4},
               ("conv", "c"): {"bwd_plan": "recompute", "bwd_ms": 0.5,
-                              "bwd_other_plan_ms": 0.75}}
+                              "bwd_other_plan_ms": 0.75,
+                              "fwd_plan": "recompute", "fwd_ms": 0.8,
+                              "fwd_other_plan_ms": 0.7},
+              ("tail", "d"): {"fwd_plan": "store", "fwd_ms": 1.0,
+                              "fwd_other_plan_ms": 1.5}}
     assert chip_smoke._plan_means(timing, {"a": 3, "b": 1, "c": 2}) == {
         "store": {"calls": 4, "chosen_ms": 1.75, "other_ms": 2.0},
         "recompute": {"calls": 2, "chosen_ms": 0.5, "other_ms": 0.75}}
+    # the forwards' plans, by kind
+    fwd = chip_smoke._plan_means(timing, {"a": 3, "b": 1, "c": 1}, "conv",
+                                 "fwd")
+    assert fwd["store"] == {"calls": 1, "chosen_ms": 0.2, "other_ms": 0.4}
+    assert fwd["recompute"]["calls"] == 4
+    assert fwd["recompute"]["chosen_ms"] == pytest.approx(0.575)
+    assert fwd["recompute"]["other_ms"] == pytest.approx(0.625)
+    assert chip_smoke._plan_means(timing, {"d": 16}, "tail", "fwd") == {
+        "store": {"calls": 16, "chosen_ms": 1.0, "other_ms": 1.5}}
+
+
+def test_smoke_checks_both_forward_plans_once_a_stage():
+    """One call shape per stage (row count), the widest first, for the
+    check that the two forward plans give the same bits."""
+    import chip_smoke
+
+    conv = [(256, 784, 512, 128, 32, True), (256, 3136, 256, 64, 32, True),
+            (256, 49, 2048, 512, 32, True), (256, 3136, 64, 64, 32, True),
+            (256, 196, 1024, 256, 32, True), (256, 784, 256, 512, 32, False)]
+    assert chip_smoke._stage_keys(conv) == [
+        (256, 3136, 64, 64, 32, True), (256, 784, 256, 512, 32, False),
+        (256, 196, 1024, 256, 32, True), (256, 49, 2048, 512, 32, True)]
+
+
+# an nvcc -Xptxas -v excerpt in the compiler's format for the forwards'
+# apply epilogue, gemm_kernel<BN, NWG, false, true, ApplyEpi>
+FORWARD_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN11fused_block2tc11gemm_kernelILi128ELi2ELb0ELb1ENS0_8ApplyEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN11fused_block2tc11gemm_kernelILi128ELi2ELb0ELb1ENS0_8ApplyEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 92 registers, used 4 barriers
+ptxas info    : Compiling entry function '_ZN11fused_block2tc11gemm_kernelILi64ELi1ELb0ELb1ENS0_8ApplyEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN11fused_block2tc11gemm_kernelILi64ELi1ELb0ELb1ENS0_8ApplyEpiEEEv14CUtensorMap_stS3_S3_S3_S3_NS0_4GeomET3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 2 barriers
+"""
+
+
+def test_smoke_reads_the_forward_apply_epilogue_per_instantiation():
+    import chip_smoke
+
+    zero = {"spill_stores": 0, "spill_loads": 0}
+    got = chip_smoke._kernel_resources(FORWARD_PTXAS_LOG, "gemm_kernel")
+    assert got == {"ApplyEpi_n128_w2": {"registers": 92, **zero},
+                   "ApplyEpi_n64_w1": {"registers": 60, **zero}}
+    assert "ApplyEpi" in chip_smoke.PTXAS_EPILOGUES["conv1x1_gn_fwd"]
+    assert chip_smoke.PTXAS_EPILOGUES["bottleneck_tail_fwd"] == (
+        "StatsEpi", "ApplyEpi")

@@ -7,7 +7,7 @@ ADAG's rounds launching them, the fused-block kernels against their
 plain versions, their launches per step and a deterministic fused step,
 the ring-hop kernels against their plain versions and a
 sequence-parallel LM step through them, and bit-equal reruns of the bf16
-forward and backward kernels.
+forward and backward kernels (the fused forwards under both pass plans).
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -411,6 +411,32 @@ def test_bf16_fused_backward_kernels_rerun_bit_equal(card, kind, key):
     for a, b in zip(first, second):
         assert bool(torch.isfinite(a).all())
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,key", FB_RERUN_KEYS)
+def test_bf16_fused_forward_plans_and_reruns_are_bit_equal(card, kind, key):
+    """The bf16 #7 or #9 gives the same bits when run twice under either
+    pass plan, and the two plans give the same bits: the recompute plan's
+    P2 computes P1's product exactly (same body, same depth order), and
+    every fold runs in a fixed order."""
+    import chip_smoke as cs
+    from distkeras_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(key) + 5)
+    if kind == "conv":
+        args = cs._conv_gn_case(fb, torch, gen, key, torch.bfloat16)[:4]
+        kw = dict(groups=key[4], eps=cs.FB_EPS, relu=key[5])
+        fn = fb._conv_gn_fwd_kernel
+    else:
+        args = cs._tail_case(fb, torch, gen, key, torch.bfloat16)[:7]
+        kw = dict(groups2=key[4], groups3=key[5], eps=cs.FB_EPS)
+        fn = fb._tail_fwd_kernel
+    outs = [fn(*args, **kw, store=store) for store in (True, True, False,
+                                                        False)]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    for o in outs[1:]:
+        assert torch.equal(outs[0], o)
 
 
 def _fused_cfg(**kw):

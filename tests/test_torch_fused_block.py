@@ -383,15 +383,120 @@ def test_plan_rejects_an_unknown_kind():
 
 
 def test_cuda_width_check_names_the_16_byte_rows():
-    """A bf16 width off the 16-byte rows of TMA is refused for a CUDA
-    backward before any launch; the check reads the tensor, so a CPU
-    tensor shows it too.  The forwards do not use TMA and take it."""
-    odd = torch.zeros(2, 4, 12, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        fb._check_kernel_inputs(odd, tma=True)
-    fb._check_kernel_inputs(odd)
+    """A width off the 16-byte vectors of TMA and of the passes' loads is
+    refused before any launch, in both dtypes (the f32 kernels' norm
+    passes load 16 bytes too); the check reads the tensor, so a CPU
+    tensor shows it too."""
+    for odd in (torch.zeros(2, 4, 12, dtype=torch.bfloat16),
+                torch.zeros(2, 4, 12)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fb._check_kernel_inputs(odd)
     fb._check_kernel_inputs(torch.zeros(2, 4, 24, dtype=torch.bfloat16),
-                            torch.zeros(2, 4, 12), tma=True)
+                            torch.zeros(2, 4, 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["conv", "tail"])
+def test_forward_kernels_refuse_an_odd_width_before_any_launch(kind, dtype):
+    """The forwards now run on TMA (bf16) and the 16-byte passes (both
+    dtypes): a width of 12 raises in the wrapper, before the library is
+    built or a launch queued."""
+    x = torch.zeros(2, 4, 12, dtype=dtype)
+    w = torch.zeros(12, 16, dtype=dtype)
+    p16 = torch.zeros(16)
+    p12 = torch.zeros(12)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        if kind == "conv":
+            fb._conv_gn_fwd_kernel(x, w, p16, p16, groups=4, eps=1e-6,
+                                   relu=True)
+        else:
+            fb._tail_fwd_kernel(x, w, p12, p12, p16, p16,
+                                torch.zeros(2, 4, 16, dtype=dtype),
+                                groups2=4, groups3=4, eps=1e-6)
+
+
+def _fwd_rows_over(cin, cout):
+    """Bytes a row that a bf16 forward's plan moves beyond what both
+    plans move: store writes and reads the f32 product; recompute reads
+    the product's input again and runs the product once more."""
+    return {"store": 8 * cout,
+            "recompute": 2 * cin
+            + 2 * cin * cout / fb.FWD_PRODUCT_FLOPS_PER_BYTE}
+
+
+@pytest.mark.parametrize("kind,key", [("conv", k) for k in CONV_CALLS]
+                         + [("tail", k) for k in TAIL_CALLS])
+def test_forward_plan_keeps_y_unless_recomputing_takes_less_time(kind, key):
+    """#7 and #9 in bf16 keep the product y in f32 between their two
+    passes (8 Cout bytes a row more) unless one more read of its bf16
+    input and one more product (2 Cin bytes and 2 Cin Cout operations a
+    row, at 132 operations a byte) take less time.  The f32 scratch is
+    ``ws`` exactly when y is kept; the product's statistics come per
+    64-row tile (its epilogue), GN2's per R-row tile (a 16-byte pass)."""
+    b, hw, cin, cout = key[:4]
+    groups = key[4] if kind == "conv" else key[4:6]
+    plan = fb.fwd_plan(kind, b, hw, cin, cout, groups, torch.bfloat16)
+    over = _fwd_rows_over(cin, cout)
+    assert plan["store"] == (over["recompute"] >= over["store"])
+    assert plan["row_tiles"] == -(-hw // fb.ROW_TILE)
+    assert plan["tiles"] == -(-hw // plan["rows"])
+    scratch = {e[0]: e[1:] for e in plan["scratch"] if e is not None}
+    assert ("ws" in scratch) == plan["store"]
+    if plan["store"]:
+        assert scratch["ws"] == ((b, hw, cout), torch.float32)
+    if kind == "conv":
+        assert len(plan["scratch"]) == 3
+        assert scratch["part"] == ((b, plan["row_tiles"], 2, cout),
+                                   torch.float32)
+        assert scratch["gstats"] == ((b, groups, 4), torch.float32)
+    else:
+        assert len(plan["scratch"]) == 6
+        assert scratch["hb"] == ((b, hw, cin), torch.bfloat16)
+        assert scratch["part2"] == ((b, plan["tiles"], 2, cin),
+                                    torch.float32)
+        assert scratch["part3"] == ((b, plan["row_tiles"], 2, cout),
+                                    torch.float32)
+        assert scratch["gstats3"] == ((b, groups[1], 4), torch.float32)
+    # f32 keeps the FMA product's workspace, its statistics per R-row tile
+    f32 = fb.fwd_plan(kind, b, hw, cin, cout, groups, torch.float32)
+    assert f32["store"] and ("ws", (b, hw, cout), torch.float32) \
+        in f32["scratch"]
+
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("kind", ["conv", "tail"])
+def test_forward_plan_can_be_forced_either_way(kind, store):
+    """Both bf16 plans of either forward exist at any shape (the smoke
+    times the one the rule does not choose); f32 always keeps y."""
+    groups = 32 if kind == "conv" else (32, 32)
+    plan = fb.fwd_plan(kind, 2, 49, 512, 2048, groups, torch.bfloat16,
+                       store)
+    assert plan["store"] is store
+    ws = plan["scratch"][0 if kind == "conv" else 1]
+    assert (ws is None) is not store
+    assert fb.fwd_plan(kind, 2, 49, 512, 2048, groups, torch.float32,
+                       store)["store"]
+
+
+def test_forward_plan_rejects_an_unknown_kind():
+    with pytest.raises(ValueError, match="kind"):
+        fb.fwd_plan("head", 2, 4, 8, 8, 4, torch.bfloat16)
+
+
+def test_forward_plan_at_the_path_is_the_timed_choice():
+    """On ResNet-50's path the rule recomputes the conv's product where x
+    has 64 channels and at the two stage-2 calls that read 256 (256 ->
+    128 over 3136 rows, the 256 -> 512 projection), and the tail's where
+    C_m is at most 256: the faster plan at each of the 36 calls as timed
+    on an H100 (PERF.md, PR 9)."""
+    conv = {k[2:4]: fb.fwd_plan("conv", *k[:5], torch.bfloat16)["store"]
+            for k in CONV_CALLS}
+    tail = {k[2:4]: fb.fwd_plan("tail", *k[:4], k[4:6],
+                                torch.bfloat16)["store"] for k in TAIL_CALLS}
+    assert {c for c, kept in conv.items() if not kept} == {
+        (64, 64), (64, 256), (256, 128), (256, 512)}
+    assert {c for c, kept in tail.items() if not kept} == {
+        (64, 256), (128, 512), (256, 1024)}
 
 
 @pytest.mark.parametrize("store", [True, False])
