@@ -38,16 +38,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    analytic MFU and the device's idle share over a few steps under
    ``torch.profiler``;
 5. the PS training path: (a) hold both GroupNorm kernels against their
-   plain versions at every [B, HW, C, G] of ResNet-50's path (bf16 and
-   f32, ReLU on and off; ``TOL_GN*``), (b) time each per launch against
-   its byte bound, its plain version and ``F.group_norm``, (c) compare
+   plain versions at every [B, HW, C, G] of ResNet-50's path and
+   ``GN_EXTRA_SHAPES`` (bf16 and f32, ReLU on and off, on the planned
+   route and, where that is one pass, on the two-pass route; the bf16
+   path shapes run twice and must be bit-equal; ``TOL_GN*``), (b) time
+   each per launch against its byte bound, its plain version and
+   ``F.group_norm``, with each shape's plan (channel splits, cluster
+   size, shared memory, clusters the card holds at once) and the
+   two-pass route and the neighbouring cluster size beside it, (c) compare
    step 1's gradients of ``norm="group_pallas"`` with ``norm="group"``
    (``TOL_GN_GNORM``/``TOL_GN_GRAD``), (d) train ResNet-50-GroupNorm
    (``scripts/perf_ps_flagship.py``'s model and round, not cut: 224 px,
    s2d stem, bf16, 4 workers, window 2, batch 32) through
    ``ADAG(fidelity="faithful")`` for 2 epochs of 4 rounds: 53
    GroupNorms per step, so exactly 424 launches of each kernel per
-   round, finite and falling losses, each round's staleness a
+   round, all on the one-pass route, finite and falling losses, each round's staleness a
    permutation of 0..3, PS clock 4 x rounds; (e) one epoch of
    ``AEASGD`` (the elastic rule) at smaller depth; (f) the trainer's
    round time (its second epoch's wall over its rounds), step time,
@@ -817,6 +822,20 @@ TOL_GN_MEAN, TOL_GN_INV, TOL_GN_PARAM = 1e-5, 1e-5, 1e-4
 TOL_GN_GNORM, TOL_GN_GRAD = 1e-2, 5e-2
 
 
+# [B, HW, C, G] beside the path's: the cuda tests' GN_SHAPES (the stem's
+# narrow groups at batch 4, a wide late stage at batch 3, an odd row
+# count, and channels off the 16-byte vector: the two-pass route's
+# one-element path)
+GN_EXTRA_SHAPES = ((4, 12544, 64, 32), (3, 49, 2048, 32), (2, 37, 96, 8),
+                   (2, 25, 12, 4))
+# the GroupNorm kernels of each direction (ptxas rows and profiler
+# classes): the one-pass cluster kernel, then the two-pass route's grids
+GN_KERNELS = {"group_norm_fwd": ("fwd_cluster_kernel", "fwd_stats_kernel",
+                                 "fwd_fold_kernel", "fwd_apply_kernel"),
+              "group_norm_bwd": ("bwd_cluster_kernel", "bwd_stats_kernel",
+                                 "bwd_fold_kernel", "bwd_apply_kernel")}
+
+
 def _gn_counts(gn):
     return {"group_norm_fwd": gn.fwd_launches,
             "group_norm_bwd": gn.bwd_launches}
@@ -824,6 +843,22 @@ def _gn_counts(gn):
 
 def _reset_gn(gn):
     gn.fwd_launches = gn.bwd_launches = gn.gradient_copies = 0
+    for key in gn.route_launches:
+        gn.route_launches[key] = 0
+
+
+def _gn_resources(text: str, kernels) -> dict:
+    """The ptxas report of each GroupNorm kernel: a template ``<T, V>``
+    keyed ``fwd_cluster_kernel_bf16_v8``..., a fold kernel by its name."""
+    report = _ptxas_report(text)
+    res = {}
+    for name in kernels:
+        for key, info in _kernel_resources(text, name).items():
+            res[f"{name}_{key.replace('_d', '_v')}"] = info
+        for mangled, info in report.items():
+            if f"{len(name)}{name}E" in mangled:
+                res[name] = info
+    return dict(sorted(res.items()))
 
 
 def _resnet_shapes(model, batch, torch):
@@ -878,52 +913,82 @@ def _ratio(a, b):
     return ((a - b).abs() / (b.abs() + rms)).max().item()
 
 
-def _check_group_norm(gn, torch, shapes):
+def _gn_row(torch, key, dname, relu, route, got, want):
+    """One kernel call's outputs against the plain versions', held to
+    ``TOL_GN*``."""
+    (y, mean, inv, dx, dg, db), (ry, rmean, rinv, rdx, rdg, rdb) = got, want
+    row = {"shape": list(key), "dtype": dname, "relu": relu, "route": route,
+           "y_err": (y.float() - ry.float()).abs().max().item(),
+           "dx_err": (dx.float() - rdx.float()).abs().max().item(),
+           "y_ratio": _ratio(y, ry), "dx_ratio": _ratio(dx, rdx),
+           "mean_err": (mean - rmean).abs().max().item(),
+           "inv_rel_err": ((inv - rinv).abs() / rinv).max().item(),
+           "dgamma_ratio": _ratio(dg, rdg), "dbeta_ratio": _ratio(db, rdb)}
+    row["ok"] = (row["y_ratio"] <= TOL_GN[dname]
+                 and row["dx_ratio"] <= TOL_GN[dname]
+                 and row["mean_err"] <= TOL_GN_MEAN
+                 and row["inv_rel_err"] <= TOL_GN_INV
+                 and row["dgamma_ratio"] <= TOL_GN_PARAM
+                 and row["dbeta_ratio"] <= TOL_GN_PARAM
+                 and bool(torch.isfinite(y).all())
+                 and bool(torch.isfinite(dx).all()))
+    print(f"group_norm {row}")
+    if not row["ok"]:
+        raise SystemExit(f"the GroupNorm kernels disagree with their plain "
+                         f"versions: {row}")
+    return row
+
+
+def _check_group_norm(gn, torch, shapes, reruns=()):
     """(a) Both kernels against their plain versions at every [B, HW, C,
-    G] of the path, bf16 and f32, ReLU on and off."""
+    G] in ``shapes``, bf16 and f32, ReLU on and off, on the route
+    ``launch_plan`` chooses and, where that is the one-pass route, on
+    the two-pass route too; in bf16 at the shapes in ``reruns`` the chosen
+    route runs twice and must give bit-equal outputs."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for b, hw, c, g in shapes:
+    for key in shapes:
+        b, hw, c, g = key
         for dname in ("bfloat16", "float32"):
             for relu in (False, True):
                 x, dy, gamma, beta = _gn_case(
                     gn, torch, gen, (b, hw, c, g, relu),
                     getattr(torch, dname))
                 kw = dict(groups=g, relu=relu)
-                y, mean, inv = gn.group_norm_fwd(x, gamma, beta, **kw)
                 ry, rmean, rinv = gn.group_norm_fwd_reference(x, gamma,
                                                               beta, **kw)
                 # both backwards from the same statistics: the same
                 # x-hat, so the same ReLU mask
-                dx, dg, db = gn.group_norm_bwd(x, dy, gamma, beta, rmean,
-                                               rinv, **kw)
-                rdx, rdg, rdb = gn.group_norm_bwd_reference(
-                    x, dy, gamma, beta, rmean, rinv, **kw)
-                torch.cuda.synchronize()
-                row = {"shape": [b, hw, c, g], "dtype": dname, "relu": relu,
-                       "y_err": (y.float() - ry.float()).abs().max().item(),
-                       "dx_err": (dx.float() - rdx.float()).abs().max()
-                       .item(),
-                       "y_ratio": _ratio(y, ry), "dx_ratio": _ratio(dx, rdx),
-                       "mean_err": (mean - rmean).abs().max().item(),
-                       "inv_rel_err": ((inv - rinv).abs() / rinv).max()
-                       .item(),
-                       "dgamma_ratio": _ratio(dg, rdg),
-                       "dbeta_ratio": _ratio(db, rdb)}
-                ok = (row["y_ratio"] <= TOL_GN[dname]
-                      and row["dx_ratio"] <= TOL_GN[dname]
-                      and row["mean_err"] <= TOL_GN_MEAN
-                      and row["inv_rel_err"] <= TOL_GN_INV
-                      and row["dgamma_ratio"] <= TOL_GN_PARAM
-                      and row["dbeta_ratio"] <= TOL_GN_PARAM
-                      and bool(torch.isfinite(y).all())
-                      and bool(torch.isfinite(dx).all()))
-                row["ok"] = ok
-                print(f"group_norm {row}")
-                if not ok:
-                    raise SystemExit(f"the GroupNorm kernels disagree with "
-                                     f"their plain versions: {row}")
-                rows.append(row)
+                want = (ry, rmean, rinv, *gn.group_norm_bwd_reference(
+                    x, dy, gamma, beta, rmean, rinv, **kw))
+                plan = "/".join(gn.launch_plan(b, hw, c, g, x.dtype, d,
+                                               "cuda").route
+                                for d in ("fwd", "bwd"))
+                routes = [None] + (["two_pass"] if "one_pass" in plan
+                                   else [])
+
+                def run(route):
+                    y, mean, inv = gn._fwd_kernel(x, gamma, beta, eps=1e-6,
+                                                  route=route, **kw)
+                    return (y, mean, inv, *gn._bwd_kernel(
+                        x, dy, gamma, beta, rmean, rinv, route=route, **kw))
+
+                for route in routes:
+                    got = run(route)
+                    torch.cuda.synchronize()
+                    row = _gn_row(torch, key, dname, relu,
+                                  plan if route is None
+                                  else "two_pass/two_pass", got, want)
+                    if dname == "bfloat16" and key in reruns \
+                            and route is None:
+                        again = run(route)
+                        torch.cuda.synchronize()
+                        row["rerun_bit_equal"] = all(
+                            torch.equal(a, b) for a, b in zip(got, again))
+                        if not row["rerun_bit_equal"]:
+                            raise SystemExit(f"a bf16 GroupNorm rerun "
+                                             f"differs: {row}")
+                    rows.append(row)
     return rows
 
 
@@ -939,10 +1004,53 @@ def _gn_bound(b, hw, c, g, dtype, backward):
     return nbytes / PEAK_BYTES * 1e3
 
 
+def _gn_route(gn, b, hw, c, g, direction):
+    """The chosen route of a bf16 call and what the card makes of it:
+    cluster size, rows a block, shared memory a block as planned and as
+    the source computes it for the launch, and the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    import torch
+
+    plan = gn.launch_plan(b, hw, c, g, torch.bfloat16, direction, "cuda")
+    out = {"route": plan.route, "k": plan.k, "splits": plan.splits,
+           "rows": plan.rows, "smem": plan.smem}
+    if plan.route == "one_pass":
+        smem, clusters = gn.one_pass_launch(plan, b, hw, c, g,
+                                            torch.bfloat16, direction)
+        if smem != plan.smem:
+            raise SystemExit(f"gn_plan's shared memory {plan.smem} is not "
+                             f"the launch's {smem} at {direction} "
+                             f"[{b},{hw},{c}]")
+        if clusters < 1:
+            raise SystemExit(f"no cluster of {plan.k} fits the card at "
+                             f"{direction} [{b},{hw},{c}]")
+        out["max_active_clusters"] = clusters
+        out["waves"] = -(-b * plan.splits // clusters)
+    return out
+
+
+def _other_k(gn, b, hw, c, g, direction, k, splits):
+    """The one-pass cluster size beside the chosen ``k`` (2k, else k/2)
+    that can take the call over the same channel splits, or None."""
+    import torch
+
+    for other in (2 * k, k // 2):
+        try:
+            gn.launch_plan(b, hw, c, g, torch.bfloat16, direction, "cuda",
+                           k=other, splits=splits)
+            return other
+        except ValueError:
+            continue
+    return None
+
+
 def _time_group_norm(gn, torch, F, mix):
     """(b) Per launch at each (shape, ReLU) of the path, bf16: both
-    kernels, their plain versions and ``F.group_norm`` (+ ReLU) forward
-    (graph replay) and backward (profiler device time)."""
+    kernels on the route ``launch_plan`` chooses, their plain versions and
+    ``F.group_norm`` (+ ReLU) forward (graph replay) and backward
+    (profiler device time); where the one-pass route is chosen, the
+    two-pass route and the one-pass route at the other cluster size
+    beside it."""
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(6)
     for key in sorted(mix):
@@ -976,6 +1084,31 @@ def _time_group_norm(gn, torch, F, mix):
                 yl, (xl, gl, bl), dyl, retain_graph=True), 10),
             "fwd_bound_ms": _gn_bound(b, hw, c, g, "bfloat16", False),
             "bwd_bound_ms": _gn_bound(b, hw, c, g, "bfloat16", True)}
+        note = ""
+        for pre in ("fwd", "bwd"):
+            plan = _gn_route(gn, b, hw, c, g, pre)
+            row[f"{pre}_plan"] = plan
+            if plan["route"] != "one_pass":
+                continue
+            calls = {"fwd": lambda **o: gn._fwd_kernel(
+                x, gamma, beta, eps=1e-6, **kw, **o),
+                     "bwd": lambda **o: gn._bwd_kernel(
+                x, dy, gamma, beta, mean, inv, **kw, **o)}
+            row[f"{pre}_two_pass_ms"] = _time_ms(
+                lambda: calls[pre](route="two_pass"), 20)
+            other = _other_k(gn, b, hw, c, g, pre, plan["k"],
+                             plan["splits"])
+            if other:
+                plan["other_k"] = other
+                row[f"{pre}_other_k_ms"] = _time_ms(
+                    lambda: calls[pre](k=other, splits=plan["splits"]), 20)
+            note += (f"; {pre} one-pass splits={plan['splits']} "
+                     f"k={plan['k']} rows={plan['rows']} "
+                     f"smem={plan['smem']} clusters at once="
+                     f"{plan['max_active_clusters']} (two-pass "
+                     f"{row[f'{pre}_two_pass_ms']:.4f} ms"
+                     + (f", k={other} {row[f'{pre}_other_k_ms']:.4f} ms"
+                        if other else "") + ")")
         out[key] = row
         print(f"timing group_norm [{b},{hw},{c}] G={g} relu={relu} bf16 "
               f"(x{mix[key]} per step): fwd {row['fwd_ms']:.4f} ms (plain "
@@ -984,7 +1117,7 @@ def _time_group_norm(gn, torch, F, mix):
               f"{row['fwd_bound_ms']:.5f}); bwd {row['bwd_ms']:.4f} ms "
               f"(plain {row['bwd_plain_ms']:.4f}, F.group_norm "
               f"{row['bwd_library_ms']:.4f}, bound "
-              f"{row['bwd_bound_ms']:.5f})")
+              f"{row['bwd_bound_ms']:.5f})" + note)
     return out
 
 
@@ -1091,10 +1224,10 @@ def _gn_grads_agree(start, batch, torch, np):
 # runs the 1x1 convolutions as; the head's small product lands here
 # too); the optimizer and the commits by their profiler ranges; the rest
 # (elementwise: weight casts, residual adds, pads, pooling, the loss)
-PS_CLASSES = (("group_norm_fwd", ("::fwd_stats_kernel<",
-                                  "::fwd_apply_kernel<")),
-              ("group_norm_bwd", ("::bwd_stats_kernel<",
-                                  "::bwd_apply_kernel<")),
+PS_CLASSES = (("group_norm_fwd", tuple(f"::{k}" for k in
+                                        GN_KERNELS["group_norm_fwd"])),
+              ("group_norm_bwd", tuple(f"::{k}" for k in
+                                        GN_KERNELS["group_norm_bwd"])),
               ("conv_gemm", ("conv", "cudnn", "xmma", "fprop", "dgrad",
                              "wgrad", "implicit", "Nhwc", "nhwc", "nchw",
                              "Nchw", "nvjet", "gemm", "cutlass")))
@@ -1207,6 +1340,7 @@ def _ps_train(seed, torch, np):
     trainer.train(data)
     torch.cuda.synchronize()
     launches = _gn_counts(gn)
+    routes = dict(gn.route_launches)
     copies = gn.gradient_copies
     hist = trainer.history
     losses, epochs = hist["round_loss"], hist["epoch_loss"]
@@ -1214,7 +1348,7 @@ def _ps_train(seed, torch, np):
     print(f"ps: ADAG rounds={rounds} epoch_loss={epochs} round_loss="
           f"{np.round(losses, 4).tolist()} staleness={hist['staleness']} "
           f"clock={trainer.parameter_server_state.clock} launches={launches}"
-          f" gradient_copies={copies} training_time_s="
+          f" by route={routes} gradient_copies={copies} training_time_s="
           f"{trainer.training_time:.3f}")
     want = per_step * w * k * rounds
     if rounds < 4 * PS_EPOCHS or any(n != want
@@ -1223,6 +1357,11 @@ def _ps_train(seed, torch, np):
                          f"over {rounds} rounds; expected {want} each "
                          f"({per_step} x {w} workers x window {k} per "
                          f"round)")
+    # every bf16 GroupNorm of the path on the one-pass route
+    if routes != {"fwd_one_pass": want, "fwd_two_pass": 0,
+                  "bwd_one_pass": want, "bwd_two_pass": 0}:
+        raise SystemExit(f"GroupNorm routes on the PS path {routes}; "
+                         f"expected all {want} of each direction one-pass")
     if not np.isfinite(losses).all() or not epochs[1] < epochs[0]:
         raise SystemExit(f"ADAG losses not finite or not falling: {epochs}")
     if any(sorted(s) != list(range(w)) for s in hist["staleness"]) \
@@ -1270,6 +1409,7 @@ def _ps_train(seed, torch, np):
     train_flops = 3.0 * fwd_flops        # forward + backward (2x)
     res = {"params": n_params, "group_norms_per_step": per_step,
            "group_norm_launches_per_round": per_step * w * k,
+           "group_norm_routes": routes,
            "fwd_gflop_per_image": fwd_flops / 1e9, "rounds": rounds,
            "epoch_loss": epochs, "round_loss": losses,
            "staleness": hist["staleness"], "lr": trainer.learning_rate,
@@ -2588,6 +2728,31 @@ def _seq_train(seed, torch, np):
     return res, launches
 
 
+def _gn_summary(timing, mix, pre):
+    """The ``kernels`` line's fields of a GroupNorm kernel: times
+    launch-weighted over the path's (shape, ReLU) mix, the two-pass
+    route's beside them, and each shape's route as launched."""
+    total = sum(mix.values())
+
+    def mean(field):
+        return sum(n * timing[k][field] for k, n in mix.items()) / total
+
+    out = {"ms": mean(f"{pre}_ms"), "plain_ms": mean(f"{pre}_plain_ms"),
+           "bound_ms": mean(f"{pre}_bound_ms"),
+           "library_ms": mean(f"{pre}_library_ms")}
+    if all(f"{pre}_two_pass_ms" in timing[k] for k in mix):
+        out["two_pass_ms"] = mean(f"{pre}_two_pass_ms")
+    if all(f"{pre}_plan" in timing[k] for k in mix):
+        out["by_shape"] = [
+            {"key": list(k), "per_step": mix[k], "ms": v[f"{pre}_ms"],
+             "bound_ms": v[f"{pre}_bound_ms"],
+             **{f: v[f"{pre}_{f}"] for f in ("two_pass_ms", "other_k_ms")
+                if f"{pre}_{f}" in v},
+             **v[f"{pre}_plan"]}
+            for k, v in sorted(timing.items())]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2604,7 +2769,7 @@ def main() -> int:
         return 1
     root = Path(__file__).resolve().parent
     if not (root / "distkeras_tpu_torch" / "__init__.py").is_file():
-        print("chip_smoke: distkeras_tpu_torch is not beside this script",
+        print(f"chip_smoke: distkeras_tpu_torch is not in {root}",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
@@ -2636,6 +2801,9 @@ def main() -> int:
     for row, epis in PTXAS_EPILOGUES.items():
         ptxas[row] = {k: v for k, v in ptxas[row].items()
                       if k.split("_")[0] in epis}
+    gn_log = libs["group_norm"].with_suffix(".log").read_text()
+    ptxas.update({row: _gn_resources(gn_log, names)
+                  for row, names in GN_KERNELS.items()})
     for row, res in ptxas.items():
         print(f"ptxas {row}: {res}")
     card = _card_line()
@@ -2760,7 +2928,8 @@ def main() -> int:
     gn_shapes = sorted({key[:4] for key in gn_mix})
     print(f"group_norm: the PS path's shapes [B, HW, C, G, relu] x per "
           f"step: {sorted(gn_mix.items())}")
-    gn_rows = _check_group_norm(gn, torch, gn_shapes)
+    gn_rows = _check_group_norm(gn, torch, gn_shapes + list(GN_EXTRA_SHAPES),
+                                reruns=gn_shapes)
     gn_timing = _time_group_norm(gn, torch, F, gn_mix)
     torch.cuda.empty_cache()
     ps, ps_counts = _ps_train(args.seed, torch, np)
@@ -2846,12 +3015,6 @@ def main() -> int:
             "ptxas": ptxas[name]})
     # the GroupNorm kernels' numbers are launch-weighted over the PS
     # path's (shape, ReLU) mix
-    gn_total = sum(gn_mix.values())
-
-    def gn_mean(field):
-        return sum(n * gn_timing[k][field]
-                   for k, n in gn_mix.items()) / gn_total
-
     for name, pre, out, line in (("group_norm_fwd", "fwd", "y", 56),
                                  ("group_norm_bwd", "bwd", "dx", 83)):
         kernels.append({
@@ -2860,11 +3023,15 @@ def main() -> int:
             "replaces": f"distkeras_tpu/ops/pallas_kernels.py:{line}",
             "launches": ps_counts[name],
             "launches_by_path": {"ps_train": ps_counts[name]},
+            "launches_by_route": {r: ps["group_norm_routes"][f"{pre}_{r}"]
+                                  for r in ("one_pass", "two_pass")},
             "max_abs_err": max(r[f"{out}_err"] for r in gn_rows
                                if r["dtype"] == "bfloat16"),
-            "ms": gn_mean(f"{pre}_ms"), "plain_ms": gn_mean(f"{pre}_plain_ms"),
-            "bound_ms": gn_mean(f"{pre}_bound_ms"), "bound_by": "bytes",
-            "library_ms": gn_mean(f"{pre}_library_ms")})
+            **_gn_summary(gn_timing, gn_mix, pre),
+            "bound_by": "bytes",
+            "reruns_bit_equal": sum(r.get("rerun_bit_equal", False)
+                                    for r in gn_rows),
+            "ptxas": ptxas[name]})
     # the fused kernels' numbers are launch-weighted over the path's
     # call shapes; "library" is null: no one PyTorch call computes these
     # functions, and the torch spelling of the region (n calls) stands

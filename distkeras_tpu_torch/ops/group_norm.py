@@ -22,14 +22,26 @@ made channels-last with one explicit copy, counted in
 A CUDA tensor goes to the kernels or the call raises; a CPU tensor
 goes to the plain versions (forward and backward).  ``fwd_launches``
 and ``bwd_launches`` count calls of the forward and backward kernel
-entry points (each launches a statistics grid and an apply grid), and
-nothing else.
+entry points, and nothing else; ``route_launches`` counts the same
+calls by direction and route.
+
+Routes.  ``gn_plan`` chooses, from the shape, the dtype and the card's
+cluster capacity (which ``launch_plan`` asks the card for) before any
+launch, how a call runs: the one-pass route (one launch: each image, or each channel
+split of whole groups, held on chip by a thread-block cluster of ``k``
+blocks, each input read once, partials exchanged through distributed
+shared memory) wherever clusters can hold the image, else the two-pass
+route (a statistics grid, a fold once per image, an apply grid).  A
+launch that fails raises; nothing gives way to the other route or to
+the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -37,15 +49,158 @@ from torch.autograd.function import once_differentiable
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: channels the kernels take at most (their shared-memory staging)
 MAX_CHANNELS = 4096
-#: elements of a block's row tile
+#: elements of a two-pass block's row tile
 TILE_ELEMS = 16384
+#: threads a block of every GroupNorm kernel runs (``NT`` in the source)
+THREADS = 256
+#: fewest bytes of a row a channel split holds (splits of 32 bytes read
+#: slower)
+MIN_SPLIT_BYTES = 64
+#: shared memory one block may use on sm_90 (bytes)
+SMEM_PER_BLOCK = 232_448
+#: blocks a wave of one-pass clusters aims at, about one an SM: among
+#: the launches with the fewest waves the plan takes the one nearest it,
+#: then the smallest cluster (an exchange costs more with k) and the
+#: fewest splits, as a sweep of every launch ranked them at ResNet-50's
+#: shapes on an H100
+WAVE_BLOCKS = 128
+#: largest cluster the source launches (``KMAX``), the portable limit:
+#: channel splits keep every path image within it
+KMAX = 8
+ROUTES = ("one_pass", "two_pass")
 
 #: forward kernel launches since the last reset (``fwd_launches = 0``)
 fwd_launches = 0
 #: backward kernel launches since the last reset
 bwd_launches = 0
+#: the same calls by direction and route (reset each value to 0)
+route_launches = {f"{d}_{r}": 0 for d in ("fwd", "bwd") for r in ROUTES}
 #: explicit channels-last copies of an incoming gradient
 gradient_copies = 0
+
+
+class Plan(NamedTuple):
+    """How one kernel call runs: ``route`` (``"one_pass"`` or
+    ``"two_pass"``); ``k`` blocks a cluster (0 on the two-pass route);
+    ``rows`` per block (one-pass) or per tile (two-pass); ``smem`` bytes
+    of dynamic shared memory a one-pass block takes (0 on the two-pass
+    route); ``scratch`` f32 elements of the two-pass route's partials;
+    ``splits`` channel splits of an image, each its own cluster (1 on
+    the two-pass route)."""
+    route: str
+    k: int
+    rows: int
+    smem: int
+    scratch: int
+    splits: int = 1
+
+
+def _item(dtype) -> int:
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype, None)
+    if dtype not in _DTYPES:
+        raise TypeError(f"group norm takes {list(_DTYPES)}; got {dtype}")
+    return dtype.itemsize
+
+
+def _cluster_smem(rows, c, g, item, inputs, k):
+    """A one-pass block's shared memory (``cluster_smem`` in the source)
+    for ``rows`` rows of a split's ``c`` channels and ``g`` groups: its
+    rows of each input, each padded to 128 bytes; the row lanes' fold
+    buffer ``[2][E-1][CVc*V]`` f32 (``Lanes``: E row lanes are left once
+    those in one warp fold by shuffles); the statistics and the inboxes
+    the cluster's ``k`` blocks write into (f32)."""
+    v = 16 // item
+    cvc = min(c // v, THREADS)
+    lanes = THREADS // cvc
+    if cvc < 32 and cvc & (cvc - 1) == 0:
+        lanes //= 32 // cvc
+    held = -(-rows * c * item // 128) * 128
+    stats = (2 * c + 2 * g + 2 * k * g if inputs == 1
+             else 2 * c + 2 * g + 2 * k * g + 2 * k * -(-c // k))
+    return inputs * held + 4 * 2 * (lanes - 1) * cvc * v + 4 * stats
+
+
+def gn_plan(b, hw, c, g, dtype, direction, *, capacity, aligned=True,
+            route=None, k=None, splits=None):
+    """The route of one GroupNorm kernel call on ``[b, hw, c]`` with ``g``
+    groups, ``direction`` ``"fwd"`` or ``"bwd"``, chosen by shape before
+    launch.  ``capacity(k, splits, rows, smem)`` gives how many clusters
+    of such a launch the card holds at once (``launch_plan`` asks the
+    card; 0 where it cannot schedule them).
+
+    One-pass where 16-byte vectors take the rows (``c`` a multiple of 16
+    bytes, every tensor 16-byte ``aligned``) and clusters can hold the
+    image: each image is cut into ``splits`` channel splits of whole
+    groups (at least ``MIN_SPLIT_BYTES`` of a row), each split's rows
+    over a cluster of ``k`` blocks (a power of two up to ``KMAX``), each
+    block holding its ``ceil(hw / k)`` rows of every input within
+    ``SMEM_PER_BLOCK``.  Among those launches the card can schedule the
+    plan takes one with the fewest waves of clusters
+    (``ceil(b * splits / capacity)``): the one whose waves come nearest
+    ``WAVE_BLOCKS`` blocks, then the smallest k, then the fewest splits.
+    Else two-pass, over row tiles of about ``TILE_ELEMS`` elements.
+    ``route`` forces a route, ``k`` and ``splits`` a launch (taken as
+    given, without asking ``capacity``; a one-pass launch the shape
+    cannot take raises).  Raises ``ValueError`` on a shape the kernels
+    do not take."""
+    item = _item(dtype)
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction must be 'fwd' or 'bwd'; got "
+                         f"{direction!r}")
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be one of {ROUTES}; got {route!r}")
+    if min(b, hw, c, g) < 1:
+        raise ValueError(f"group norm needs a non-empty [B, HW, C] and "
+                         f"groups; got [{b}, {hw}, {c}], groups={g}")
+    if c % g:
+        raise ValueError(f"channels={c} not divisible by groups={g}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the CUDA kernels take at most {MAX_CHANNELS} "
+                         f"channels; got {c}")
+    forced = k is not None or splits is not None
+    if capacity is None and not forced and route != "two_pass":
+        raise TypeError("an unforced plan needs the card's capacity")
+    if forced and (route == "two_pass" or not 1 <= (k or 1) <= KMAX
+                   or (splits or 1) < 1):
+        raise ValueError(f"no one-pass launch with a cluster of {k} "
+                         f"over {splits} splits (route={route!r})")
+    inputs = 1 if direction == "fwd" else 2
+    if route != "two_pass" and aligned and (c * item) % 16 == 0:
+        launches = ([(splits or 1, k or 1)] if forced else
+                    [(s, n) for s in (1, 2, 4, 8, 16)
+                     for n in (1, 2, 4, 8)])
+        fits = []  # (waves, distance from WAVE_BLOCKS, k, splits), plan
+        for s, n in launches:
+            cl = c // s
+            if (c % s or g % s or cl * item % 16
+                    or s > 1 and cl * item < MIN_SPLIT_BYTES):
+                continue
+            rows = -(-hw // n)
+            smem = _cluster_smem(rows, cl, g // s, item, inputs, n)
+            if smem > SMEM_PER_BLOCK:
+                continue
+            plan = Plan("one_pass", n, rows, smem, 0, s)
+            if forced:
+                return plan
+            at_once = capacity(n, s, rows, smem)
+            if at_once > 0:
+                waves = -(-b * s // at_once)
+                near = abs(math.log2(b * s * n / waves / WAVE_BLOCKS))
+                fits.append(((waves, near, n, s), plan))
+        if fits:
+            return min(fits)[1]
+    if route == "one_pass" or forced:
+        raise ValueError(
+            f"the one-pass route cannot take {direction} [{b}, {hw}, {c}] "
+            f"{dtype} (aligned={aligned}, k={k}, splits={splits}): no "
+            f"launch of clusters of at most {k or KMAX} blocks the card "
+            f"can schedule holds the image")
+    rows = max(1, min(hw, TILE_ELEMS // c))
+    tiles = -(-hw // rows)
+    scratch = (b * tiles * 2 * g if direction == "fwd"
+               else b * tiles * 2 * c + b * 2 * g)
+    return Plan("two_pass", 0, rows, 0, scratch)
 
 
 def _check(x3, gamma, beta, groups):
@@ -130,11 +285,8 @@ def _check_kernel_inputs(*tensors):
                          "inputs (channels-last memory)")
 
 
-def _tiling(x3):
-    """``(rows per tile, tiles per image)`` of the kernels' grid."""
-    hw, c = x3.shape[1], x3.shape[2]
-    rows = max(1, min(hw, TILE_ELEMS // c))
-    return rows, -(-hw // rows)
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _launch(fn, name, device, *args):
@@ -144,28 +296,35 @@ def _launch(fn, name, device, *args):
         raise RuntimeError(f"{name} launch failed: error {err}")
 
 
-def _fwd_kernel(x3, gamma, beta, *, groups: int, eps: float, relu: bool):
+def _fwd_kernel(x3, gamma, beta, *, groups: int, eps: float, relu: bool,
+                route=None, k=None, splits=None):
+    """The forward kernel on the route ``launch_plan`` chooses
+    (``route``, ``k`` and ``splits`` force one)."""
     global fwd_launches
     _check_kernel_inputs(x3, gamma, beta)
     b, hw, c = x3.shape
-    rows, tiles = _tiling(x3)
     dev = x3.device
     y = torch.empty_like(x3)
+    plan = launch_plan(b, hw, c, groups, x3.dtype, "fwd", dev,
+                       aligned=_aligned(x3, y), route=route, k=k,
+                       splits=splits)
     mean = torch.empty((b, groups), dtype=torch.float32, device=dev)
     inv = torch.empty_like(mean)
-    part = torch.empty((b, tiles, 2, groups), dtype=torch.float32,
-                       device=dev)
+    part = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
     _launch(_library().group_norm_fwd, "group_norm_fwd", dev,
             x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr(), inv.data_ptr(), part.data_ptr(), b, hw, c,
-            groups, rows, _count(x3, groups), float(eps), int(relu),
-            _DTYPES[x3.dtype])
+            groups, plan.rows, plan.k, plan.splits, _count(x3, groups),
+            float(eps), int(relu), _DTYPES[x3.dtype])
     fwd_launches += 1
+    route_launches[f"fwd_{plan.route}"] += 1
     return y, mean, inv
 
 
 def _bwd_kernel(x3, dy3, gamma, beta, mean, inv, *, groups: int,
-                relu: bool):
+                relu: bool, route=None, k=None, splits=None):
+    """The backward kernel on the route ``launch_plan`` chooses
+    (``route``, ``k`` and ``splits`` force one)."""
     global bwd_launches
     _check_kernel_inputs(x3, dy3, gamma, beta, mean, inv)
     if dy3.shape != x3.shape or dy3.dtype != x3.dtype:
@@ -173,20 +332,72 @@ def _bwd_kernel(x3, dy3, gamma, beta, mean, inv, *, groups: int,
     b, hw, c = x3.shape
     if mean.shape != (b, groups) or inv.shape != (b, groups):
         raise ValueError(f"mean and inv must be [B, G]=[{b}, {groups}]")
-    rows, tiles = _tiling(x3)
     dev = x3.device
     dx = torch.empty_like(x3)
+    plan = launch_plan(b, hw, c, groups, x3.dtype, "bwd", dev,
+                       aligned=_aligned(x3, dy3, dx), route=route, k=k,
+                       splits=splits)
     dgamma_b = torch.empty((b, c), dtype=torch.float32, device=dev)
     dbeta_b = torch.empty_like(dgamma_b)
-    part = torch.empty((b, tiles, 2, c), dtype=torch.float32, device=dev)
+    part = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
     _launch(_library().group_norm_bwd, "group_norm_bwd", dev,
             x3.data_ptr(), dy3.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), mean.data_ptr(), inv.data_ptr(),
             dx.data_ptr(), dgamma_b.data_ptr(), dbeta_b.data_ptr(),
-            part.data_ptr(), b, hw, c, groups, rows, _count(x3, groups),
-            int(relu), _DTYPES[x3.dtype])
+            part.data_ptr(), b, hw, c, groups, plan.rows, plan.k,
+            plan.splits, _count(x3, groups), int(relu), _DTYPES[x3.dtype])
     bwd_launches += 1
+    route_launches[f"bwd_{plan.route}"] += 1
     return dx, dgamma_b, dbeta_b
+
+
+def launch_plan(b, hw, c, g, dtype, direction, device, *, aligned=True,
+                route=None, k=None, splits=None):
+    """``gn_plan`` with the card's capacity: the plan a CUDA call on
+    ``device`` launches (``cudaOccupancyMaxActiveClusters`` of each
+    cluster size), worked out once per shape."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _launch_plan(b, hw, c, g, dtype, direction, device, aligned,
+                        route, k, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(b, hw, c, g, dtype, direction, device, aligned, route, k,
+                 splits):
+    def capacity(size, cuts, rows, smem):
+        with torch.cuda.device(device):
+            return _max_clusters(b, hw, c, g, dtype, direction, rows, size,
+                                 cuts)
+
+    return gn_plan(b, hw, c, g, dtype, direction, capacity=capacity,
+                   aligned=aligned, route=route, k=k, splits=splits)
+
+
+def _max_clusters(b, hw, c, g, dtype, direction, rows, k, splits):
+    """``cudaOccupancyMaxActiveClusters`` of a one-pass launch on the
+    current device: how many of its clusters the card holds at once."""
+    out = ctypes.c_int(-1)
+    err = _library().group_norm_max_clusters(
+        int(direction == "bwd"), _DTYPES[dtype], b, hw, c, g, rows, k,
+        splits, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"error {err}")
+    return out.value
+
+
+def one_pass_launch(plan, b, hw, c, g, dtype, direction):
+    """What the card makes of a one-pass ``plan``: ``(shared memory a
+    block is launched with, clusters the card holds at once)``, from the
+    kernel source (``group_norm_smem``) and
+    ``cudaOccupancyMaxActiveClusters``."""
+    smem = _library().group_norm_smem(int(direction == "bwd"),
+                                      _DTYPES[dtype], b, hw, c, g,
+                                      plan.rows, plan.k, plan.splits)
+    return smem, _max_clusters(b, hw, c, g, dtype, direction, plan.rows,
+                               plan.k, plan.splits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,12 +406,17 @@ def _library():
 
     ptr, int_, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib = _build.load("group_norm")
-    lib.group_norm_fwd.argtypes = ([ptr] * 7 + [int_] * 5
+    lib.group_norm_fwd.argtypes = ([ptr] * 7 + [int_] * 7
                                    + [f32, f32, int_, int_, ptr])
     lib.group_norm_fwd.restype = int_
-    lib.group_norm_bwd.argtypes = ([ptr] * 10 + [int_] * 5
+    lib.group_norm_bwd.argtypes = ([ptr] * 10 + [int_] * 7
                                    + [f32, int_, int_, ptr])
     lib.group_norm_bwd.restype = int_
+    lib.group_norm_smem.argtypes = [int_] * 9
+    lib.group_norm_smem.restype = ctypes.c_longlong
+    lib.group_norm_max_clusters.argtypes = [int_] * 9 + [
+        ctypes.POINTER(int_)]
+    lib.group_norm_max_clusters.restype = int_
     return lib
 
 

@@ -376,3 +376,101 @@ def test_smoke_reads_the_forward_apply_epilogue_per_instantiation():
     assert "ApplyEpi" in chip_smoke.PTXAS_EPILOGUES["conv1x1_gn_fwd"]
     assert chip_smoke.PTXAS_EPILOGUES["bottleneck_tail_fwd"] == (
         "StatsEpi", "ApplyEpi")
+
+
+def _gn_source():
+    return (_build._CSRC / "group_norm.cu").read_text()
+
+
+def _kernel_text(text, name):
+    """The text of ``__global__`` kernel ``name``: from its name to the
+    closing brace at the start of a line."""
+    start = re.search(rf"\b{name}\(", text).start()
+    return text[start:text.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("name", ["fwd_cluster_kernel", "bwd_cluster_kernel"])
+def test_group_norm_defines_the_cluster_kernels(name):
+    """One launch per direction: each block copies its rows into shared
+    memory, writes its partials into its peers' shared memory and meets
+    them at the cluster barrier."""
+    text = _gn_source()
+    assert re.search(rf"__global__ void __launch_bounds__\([^)]*\) {name}\(",
+                     text)
+    body = _kernel_text(text, name)
+    for step in ("start_loads<T, V>(", "wait_piece(", "put_peer(",
+                 "cluster_arrive();", "cluster_wait();", "group_sums("):
+        assert step in body, step
+    assert "cudaLaunchAttributeClusterDimension" in text
+    # clusters of at most 8, the portable limit
+    assert "NonPortableClusterSizeAllowed" not in text
+    assert "cudaLaunchKernelEx(" in text
+    assert "cudaOccupancyMaxActiveClusters(" in text
+
+
+def test_group_norm_sets_the_shared_memory_limit_once():
+    """A launch makes no attribute call: the cluster kernels' shared-memory
+    limit is raised once per kernel and device, in ``smem_ready``, and
+    both the launches and the occupancy query go through it."""
+    text = re.sub(r"//[^\n]*", "", _gn_source())
+    assert text.count("cudaFuncSetAttribute(") == 1
+    body = text[text.index("cudaError_t smem_ready()"):]
+    body = body[:body.index("\n}\n")]
+    assert "cudaFuncSetAttribute(" in body and "done[dev] = true" in body
+    for kernel in ("fwd_cluster_kernel<T, V>", "bwd_cluster_kernel<T, V>"):
+        assert f"smem_ready<{kernel}>()" in text
+    assert "smem_ready<Kernel>()" in text
+
+
+def test_group_norm_has_no_atomics():
+    text = re.sub(r"//[^\n]*", "", _gn_source())
+    assert "atomic" not in text.lower()
+    assert not re.search(r"\b(atom|red)\.(global|shared)", text)
+
+
+@pytest.mark.parametrize("name", ["fwd_apply_kernel", "bwd_apply_kernel"])
+def test_group_norm_apply_grids_no_longer_refold_the_tiles(name):
+    """The two-pass route's apply blocks read the folded statistics (2G
+    values an image); no apply block walks the tiles' partials."""
+    body = _kernel_text(_gn_source(), name)
+    assert "ntiles" not in body and "part" not in body
+    assert "__global__ void __launch_bounds__(NT) fwd_fold_kernel(" \
+        in _gn_source()
+    assert "__global__ void __launch_bounds__(NT) bwd_fold_kernel(" \
+        in _gn_source()
+
+
+def test_ps_profile_classes_name_the_group_norm_kernels():
+    """The PS profile's GroupNorm classes match every kernel that
+    group_norm.cu defines and nothing it does not."""
+    import chip_smoke
+
+    defined = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\) "
+                             r"(\w+)\(", _gn_source()))
+    classes = dict(chip_smoke.PS_CLASSES)
+    marks = {m for name in ("group_norm_fwd", "group_norm_bwd")
+             for m in classes[name]}
+    assert {m.removeprefix("::") for m in marks} == defined
+    assert {n for names in chip_smoke.GN_KERNELS.values()
+            for n in names} == defined
+    for name, names in chip_smoke.GN_KERNELS.items():
+        assert all(n.startswith(name.rsplit("_", 1)[1]) for n in names)
+
+
+def test_group_norm_c_layout_matches_the_plan():
+    """``cluster_smem`` in the source and ``_cluster_smem`` in the
+    wrapper name the same terms."""
+    text = _gn_source()
+    body = text[text.index("inline Smem cluster_smem("):]
+    body = body[:body.index("\n}\n")]
+    assert "nin == 1 ? 2LL * Cl + 2LL * Gl + 2LL * k * Gl" in body
+    assert "2LL * Cl + 2LL * Gl + 2LL * k * Gl\n" in body
+    assert "2LL * k * ((Cl + k - 1) / k)" in body
+    assert "/ 128 * 128" in body
+    from distkeras_tpu_torch.ops import group_norm as gn
+
+    assert f"constexpr int NT = {gn.THREADS};" in text
+    assert f"constexpr int SMEM_MAX = {gn.SMEM_PER_BLOCK};" in text
+    assert f"constexpr int KMAX = {gn.KMAX};" in text
+    assert gn.KMAX == 8
+    assert f"(S > 1 && (C / S) * item < {gn.MIN_SPLIT_BYTES})" in text

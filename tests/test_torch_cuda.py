@@ -7,7 +7,9 @@ ADAG's rounds launching them, the fused-block kernels against their
 plain versions, their launches per step and a deterministic fused step,
 the ring-hop kernels against their plain versions and a
 sequence-parallel LM step through them, and bit-equal reruns of the bf16
-forward and backward kernels (the fused forwards under both pass plans).
+forward and backward kernels (the fused forwards under both pass plans;
+the GroupNorm kernels on the one-pass route, whose routes are held
+against the plain versions at the PS path's shapes).
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -231,6 +233,106 @@ def test_group_norm_kernels_match_plain(card, shape, dtype, relu):
     assert (mean - rmean).abs().max().item() <= 1e-5
     assert ((inv - rinv).abs() / rinv).max().item() <= 1e-5
     assert _ratio(dg, rdg) <= 1e-4 and _ratio(db, rdb) <= 1e-4
+
+
+# the PS path's GroupNorm shapes: ResNet-50 at 224 px, batch 32, 32
+# groups ([HW, C] of its 53 GroupNorms a step)
+GN_PATH_SHAPES = [(32, hw, c, 32) for hw, c in (
+    (12544, 64), (3136, 64), (3136, 128), (3136, 256), (784, 128),
+    (784, 256), (784, 512), (196, 256), (196, 512), (196, 1024), (49, 512),
+    (49, 2048))]
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_SHAPES + GN_PATH_SHAPES)
+def test_group_norm_routes_match_plain(card, shape, dtype, relu):
+    """The route ``gn_plan`` chooses and, where that is the one-pass
+    route, the two-pass route too, against the plain versions at the
+    limits above; each call counted under its route."""
+    gn, x, dy, gamma, beta, g = _gn_inputs(shape, dtype, sum(shape) + 1)
+    ry, rmean, rinv = gn.group_norm_fwd_reference(x, gamma, beta, groups=g,
+                                                  relu=relu)
+    rdx, rdg, rdb = gn.group_norm_bwd_reference(x, dy, gamma, beta, rmean,
+                                                rinv, groups=g, relu=relu)
+    chosen = {d: gn.launch_plan(*shape, dtype, d, "cuda").route
+              for d in ("fwd", "bwd")}
+    routes = [None] + (["two_pass"] if "one_pass" in chosen.values()
+                       else [])
+    for route in routes:
+        before = dict(gn.route_launches)
+        y, mean, inv = gn._fwd_kernel(x, gamma, beta, groups=g, eps=1e-6,
+                                      relu=relu, route=route)
+        dx, dg, db = gn._bwd_kernel(x, dy, gamma, beta, rmean, rinv,
+                                    groups=g, relu=relu, route=route)
+        torch.cuda.synchronize()
+        for d in ("fwd", "bwd"):
+            key = f"{d}_{route or chosen[d]}"
+            assert gn.route_launches[key] == before[key] + 1, key
+        assert _ratio(y, ry) <= GN_TOL[dtype]
+        assert _ratio(dx, rdx) <= GN_TOL[dtype]
+        assert (mean - rmean).abs().max().item() <= 1e-5
+        assert ((inv - rinv).abs() / rinv).max().item() <= 1e-5
+        assert _ratio(dg, rdg) <= 1e-4 and _ratio(db, rdb) <= 1e-4
+
+
+@pytest.mark.parametrize("splits,k", [(1, 1), (2, 2), (4, 1), (8, 4),
+                                      (2, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_channel_splits_match_plain(card, dtype, splits, k):
+    """The one-pass kernels with each image cut into channel splits (each
+    its own cluster) against the plain versions, off every edge: 37 rows
+    over k blocks, ReLU on."""
+    shape = (3, 37, 512, 32)
+    gn, x, dy, gamma, beta, g = _gn_inputs(shape, dtype, splits * 10 + k)
+    kw = dict(groups=g, relu=True)
+    ry, rmean, rinv = gn.group_norm_fwd_reference(x, gamma, beta, **kw)
+    rdx, rdg, rdb = gn.group_norm_bwd_reference(x, dy, gamma, beta, rmean,
+                                                rinv, **kw)
+    y, mean, inv = gn._fwd_kernel(x, gamma, beta, eps=1e-6, k=k,
+                                  splits=splits, **kw)
+    dx, dg, db = gn._bwd_kernel(x, dy, gamma, beta, rmean, rinv, k=k,
+                                splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert _ratio(y, ry) <= GN_TOL[dtype]
+    assert _ratio(dx, rdx) <= GN_TOL[dtype]
+    assert (mean - rmean).abs().max().item() <= 1e-5
+    assert ((inv - rinv).abs() / rinv).max().item() <= 1e-5
+    assert _ratio(dg, rdg) <= 1e-4 and _ratio(db, rdb) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", GN_PATH_SHAPES)
+def test_bf16_group_norm_one_pass_reruns_are_bit_equal(card, shape):
+    """Every bf16 GroupNorm of the PS path takes the one-pass route, and
+    two runs give bit-equal outputs (fixed-order folds, no atomics)."""
+    gn, x, dy, gamma, beta, g = _gn_inputs(shape, torch.bfloat16, 3)
+    for d in ("fwd", "bwd"):
+        assert gn.launch_plan(*shape, torch.bfloat16, d, "cuda").route \
+            == "one_pass"
+
+    def run():
+        y, mean, inv = gn.group_norm_fwd(x, gamma, beta, groups=g, relu=True)
+        return (y, mean, inv, *gn.group_norm_bwd(x, dy, gamma, beta, mean,
+                                                 inv, groups=g, relu=True))
+
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_group_norm_one_pass_plans_fit_the_card(card, direction):
+    """At the PS path's shapes the launch takes the shared memory
+    ``gn_plan`` counted, and the card holds at least one such cluster
+    at once (``cudaOccupancyMaxActiveClusters``)."""
+    from distkeras_tpu_torch.ops import group_norm as gn
+
+    for shape in GN_PATH_SHAPES:
+        plan = gn.launch_plan(*shape, torch.bfloat16, direction, "cuda")
+        smem, clusters = gn.one_pass_launch(plan, *shape, torch.bfloat16,
+                                            direction)
+        assert smem == plan.smem <= gn.SMEM_PER_BLOCK, shape
+        assert clusters >= 1, shape
 
 
 def test_group_norm_kernel_takes_channels_last_only(card):
