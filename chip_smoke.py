@@ -95,7 +95,22 @@ Phases, in order; any failure exits nonzero and prints no result:
    the ring against dense attention at T 2048, (f) two runs of two
    steps with bit-equal losses, (g) step time, tokens/s, MFU and two
    steps under ``torch.profiler``;
-8. print the kernel table as one JSON line, then the device line last.
+8. the rest of the Trainer family: (a) ``SyncTrainer`` (4 workers of
+   64 rows) trains phase 6's fused ResNet-50 for 2 epochs of 2 steps in
+   turns with ``SingleTrainer`` at batch 256 from the same weights:
+   exactly 20/20/16/16 launches of #7-#10 a step, finite losses bit-equal
+   to SingleTrainer's in every turn, both trainers' time a step; (b)
+   ``AveragingTrainer`` (2 members of batch 32, 2 steps each) on phase
+   5's ``norm="group_pallas"`` ResNet-50: exactly 53 launches of each
+   GroupNorm kernel a member step, all one-pass, the result the
+   members' mean; one step of ``EnsembleTrainer``'s 2 members, which
+   differ; (c) ``ADAG(fidelity="faithful")`` over ResNet-50 with
+   ``norm="batch"``, 2 workers, window 2, batch 32, 2 rounds: finite
+   losses, each worker's BatchNorm statistics moved and apart from the
+   other's, the returned ones worker 0's, the round time; (d) the MNIST
+   MLP at ``dropout_rate=0.3`` through ``EnsembleTrainer``: the members
+   draw different masks, a rerun is bit-equal;
+9. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -2728,6 +2743,239 @@ def _seq_train(seed, torch, np):
     return res, launches
 
 
+# ---- phase 8: the rest of the Trainer family ---------------------------
+
+# (a) SyncTrainer on phase 6's fused path: 4 workers of 64 rows, the
+# global batch of 256 on the card, 2 epochs of 2 steps, against
+# SingleTrainer at batch 256 from the same weights on the same rows
+SYNC = dict(num_workers=4, batch_size=64)
+SYNC_ROWS, SYNC_EPOCHS = 512, 2
+# (b) AveragingTrainer on phase 5's model (norm="group_pallas"): 2
+# members of batch 32, 1 epoch of 2 steps each (shards of 64 rows); then
+# one step of each EnsembleTrainer member (shards of 32 rows)
+MEMBERS, MEMBER_BATCH, MEMBER_ROWS = 2, 32, 128
+# (c) BatchNorm through the PS round: ADAG (faithful) over ResNet-50
+# with norm="batch", 2 workers, window 2, batch 32, 1 epoch of 2 rounds,
+# lr 0.05 scaled by ADAG's law (lr_law="scale") as phase 5's
+BN_RESNET = {**RESNET, "norm": "batch"}
+BN_PS = {**PS, "num_workers": 2}
+BN_ROWS = 256
+# (d) dropout on the card: the MNIST baseline MLP (784 -> 500 -> 500 ->
+# 10) at dropout_rate 0.3 through EnsembleTrainer, 2 members of batch 64,
+# 1 epoch of 4 steps each, adam 1e-3
+DROP_MLP = dict(num_classes=10, hidden=(500, 500), dropout_rate=0.3)
+DROP_ROWS, DROP_BATCH = 512, 64
+
+
+def _trainer_family(seed, torch, np, fb, gn):
+    """Phase 8: (a) SyncTrainer against SingleTrainer on the fused path,
+    (b) AveragingTrainer and EnsembleTrainer on the GroupNorm kernels,
+    (c) BatchNorm's worker-local statistics through ADAG, (d) dropout's
+    per-member streams.  Returns the numbers and each path's launch
+    counts (set to 0 just before the path, read just after)."""
+    from distkeras_tpu_torch import (ADAG, AveragingTrainer,
+                                     EnsembleTrainer, SingleTrainer,
+                                     SyncTrainer)
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.workers import make_train_step
+
+    t_phase = time.monotonic()
+    res, counts = {}, {}
+    t0 = time.monotonic()
+    data = datasets.imagenet_synth(SYNC_ROWS, image_size=IMAGE,
+                                   num_classes=FUSED["num_classes"],
+                                   seed=seed)
+    print(f"trainers: imagenet_synth({SYNC_ROWS}) made in "
+          f"{time.monotonic() - t0:.1f} s")
+
+    # (a) SyncTrainer and SingleTrainer in turns from the same weights:
+    # sync, single, single, sync; the kernels counted on the first run
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **FUSED)
+    train = {**FUSED_TRAIN, "num_epoch": SYNC_EPOCHS, "seed": seed}
+    steps = SYNC_EPOCHS * (SYNC_ROWS // FUSED_TRAIN["batch_size"])
+    runs = {"sync": [], "single": []}
+    start = None
+    for turn, name in enumerate(("sync", "single", "single", "sync")):
+        if name == "sync":
+            tr = SyncTrainer(cfg, num_workers=SYNC["num_workers"],
+                             **{**train, "batch_size": SYNC["batch_size"]})
+        else:
+            tr = SingleTrainer(cfg, **train)
+        if start is None:
+            start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        torch.cuda.synchronize()
+        if turn == 0:
+            _reset_fb(fb)
+        tr.train(data, initial_variables=start)
+        torch.cuda.synchronize()
+        if turn == 0:
+            counts["sync_train"] = _fb_counts(fb)
+        runs[name].append((tr.step_metrics["loss"], tr.training_time,
+                           tr.history["epoch_loss"]))
+        del tr
+        torch.cuda.empty_cache()
+    blocks = sum(FUSED["stage_sizes"])
+    convs = blocks + len(FUSED["stage_sizes"])
+    want = {k: n * steps for k, n in zip(FB_KERNELS, (convs, convs, blocks,
+                                                      blocks))}
+    sync_loss = runs["sync"][0][0]
+    step_ms = {k: float(np.mean([t for _, t, _ in v])) / steps * 1e3
+               for k, v in runs.items()}
+    print(f"trainers: SyncTrainer(num_workers={SYNC['num_workers']}, "
+          f"batch_size={SYNC['batch_size']}) fused steps={len(sync_loss)} "
+          f"losses {sync_loss.tolist()} epoch_loss {runs['sync'][0][2]} "
+          f"launches={counts['sync_train']} (want {want}); "
+          f"SingleTrainer(batch_size={FUSED_TRAIN['batch_size']}) losses "
+          f"{runs['single'][0][0].tolist()}; trainer ms a step (training "
+          f"time over {steps} steps, mean of 2 turns) {step_ms}")
+    if counts["sync_train"] != want:
+        raise SystemExit(f"SyncTrainer's fused kernel launches "
+                         f"{counts['sync_train']}; expected {want}")
+    if len(sync_loss) != steps or not np.isfinite(sync_loss).all():
+        raise SystemExit("SyncTrainer's losses missing or not finite")
+    if not all(np.array_equal(loss, sync_loss)
+               for v in runs.values() for loss, _, _ in v):
+        raise SystemExit("SyncTrainer(4 x 64) and SingleTrainer(256) "
+                         "losses are not bit-equal")
+    res["sync"] = {"steps": steps, "losses": sync_loss.tolist(),
+                   "single_losses": runs["single"][0][0].tolist(),
+                   "launches": counts["sync_train"],
+                   "trainer_step_ms": step_ms,
+                   "training_time_s": {k: [t for _, t, _ in v]
+                                       for k, v in runs.items()}}
+
+    # (b) AveragingTrainer over the GroupNorm kernels
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **RESNET)
+    member = dict(batch_size=MEMBER_BATCH, seed=seed, learning_rate=PS_LR,
+                  worker_optimizer="momentum",
+                  loss="sparse_categorical_crossentropy")
+    avg = AveragingTrainer(cfg, num_workers=MEMBERS, num_epoch=1, **member)
+    rows = data.take(MEMBER_ROWS)
+    torch.cuda.synchronize()
+    _reset_gn(gn)
+    avg.train(rows)
+    torch.cuda.synchronize()
+    counts["averaging_train"] = _gn_counts(gn)
+    routes = {"averaging_train": dict(gn.route_launches)}
+    member_steps = MEMBERS * (MEMBER_ROWS // MEMBERS // MEMBER_BATCH)
+    per_step = sum(_resnet_shapes(avg.model, MEMBER_BATCH, torch)[0]
+                   .values())
+    want = per_step * member_steps
+    av = avg.trained_variables
+    mean_ok = all(torch.equal(av[k], torch.stack(
+        [m[k] for m in avg.member_variables]).mean(0))
+        for k, _ in avg.model.named_parameters())
+    print(f"trainers: AveragingTrainer members={MEMBERS} member_loss="
+          f"{avg.history['member_loss']} launches="
+          f"{counts['averaging_train']} by route "
+          f"{routes['averaging_train']} (want {want} of each: {per_step} a "
+          f"step x {member_steps} member steps) mean of members: {mean_ok}"
+          f" training_time_s={avg.training_time:.3f}")
+    if any(n != want for n in counts["averaging_train"].values()) \
+            or routes["averaging_train"] != {
+                "fwd_one_pass": want, "fwd_two_pass": 0,
+                "bwd_one_pass": want, "bwd_two_pass": 0}:
+        raise SystemExit("AveragingTrainer's GroupNorm launches or routes "
+                         "off")
+    if not mean_ok or not np.isfinite(avg.history["member_loss"]).all():
+        raise SystemExit("AveragingTrainer's result is not the members' "
+                         "mean, or its losses are not finite")
+    res["averaging"] = {"member_loss": avg.history["member_loss"],
+                        "launches": counts["averaging_train"],
+                        "routes": routes["averaging_train"],
+                        "member_step_ms": avg.training_time / member_steps
+                        * 1e3}
+    del avg
+    torch.cuda.empty_cache()
+    # one step of each EnsembleTrainer member: distinct inits
+    ens = EnsembleTrainer(cfg, num_models=MEMBERS, num_epoch=1, **member)
+    torch.cuda.synchronize()
+    _reset_gn(gn)
+    members = ens.train(data.take(MEMBERS * MEMBER_BATCH))
+    torch.cuda.synchronize()
+    counts["ensemble_train"] = _gn_counts(gn)
+    routes["ensemble_train"] = dict(gn.route_launches)
+    differ = [k for k in members[0]
+              if not torch.equal(members[0][k], members[1][k])]
+    print(f"trainers: EnsembleTrainer one step a member: member_loss="
+          f"{ens.history['member_loss']} launches={counts['ensemble_train']}"
+          f" leaves that differ between members {len(differ)} of "
+          f"{len(members[0])}")
+    if any(n != per_step * MEMBERS
+           for n in counts["ensemble_train"].values()) or not differ \
+            or not np.isfinite(ens.history["member_loss"]).all():
+        raise SystemExit("EnsembleTrainer's launches off, its members "
+                         "equal, or its losses not finite")
+    res["ensemble"] = {"member_loss": ens.history["member_loss"],
+                       "launches": counts["ensemble_train"],
+                       "leaves_differing": len(differ)}
+    del ens, members
+    torch.cuda.empty_cache()
+
+    # (c) BatchNorm's statistics stay with each worker through ADAG
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **BN_RESNET)
+    bn = ADAG(cfg, num_epoch=1, seed=seed, learning_rate=PS_LR,
+              lr_law="scale", device="cuda", **BN_PS)
+    start_stats = {k: v.clone() for k, v in bn.model.state_dict().items()
+                   if k.endswith((".mean", ".var"))}
+    bv = bn.train(data.take(BN_ROWS))
+    torch.cuda.synchronize()
+    losses = bn.history["round_loss"]
+    w0, w1 = bn.worker_model_states
+    moved = all(not torch.equal(w[k], start_stats[k])
+                for w in (w0, w1) for k in start_stats)
+    apart = all(not torch.equal(w0[k], w1[k]) for k in start_stats)
+    returned = all(torch.equal(bv[k], w0[k]) for k in start_stats)
+    round_ms = bn.epoch_time_s[0] / len(losses) * 1e3
+    print(f"trainers: ADAG norm='batch' workers={BN_PS['num_workers']} "
+          f"rounds={len(losses)} round_loss={losses} statistics "
+          f"{len(start_stats)}: moved {moved}, apart {apart}, returned "
+          f"worker 0's {returned}; round_ms={round_ms:.3f} (epoch 1 wall, "
+          f"its shuffle included, over its rounds)")
+    if not (len(losses) == 2 and np.isfinite(losses).all() and moved
+            and apart and returned):
+        raise SystemExit("ADAG with norm='batch': losses, or the workers' "
+                         "statistics, off")
+    res["batchnorm_ps"] = {"round_loss": losses, "round_ms": round_ms,
+                           "statistics": len(start_stats)}
+    del bn, bv, w0, w1
+    torch.cuda.empty_cache()
+
+    # (d) dropout: each member its own stream, a rerun bit-equal
+    cfg = model_config("mlp", (784,), **DROP_MLP)
+    drop_data = datasets.synthetic_classification(DROP_ROWS, (784,), 10,
+                                                  seed=seed)
+    drop = dict(num_models=MEMBERS, batch_size=DROP_BATCH, num_epoch=1,
+                seed=seed, learning_rate=1e-3, worker_optimizer="adam",
+                loss="sparse_categorical_crossentropy")
+    reruns = []
+    for _ in range(2):
+        ens = EnsembleTrainer(cfg, **drop)
+        reruns.append((ens.train(drop_data), ens.history["member_loss"]))
+    bit_equal = reruns[0][1] == reruns[1][1] and all(
+        torch.equal(a[k], b[k]) for a, b in zip(reruns[0][0], reruns[1][0])
+        for k in a)
+    # one step of each member from one start on one batch: the masks
+    step = make_train_step(ens.model, drop["loss"], ens._tx())
+    batch = {c: torch.from_numpy(drop_data[c][:DROP_BATCH]).to("cuda")
+             for c in ("features", "label")}
+    mask_losses = [float(step(s, batch)[1]["loss"])
+                   for s in ens._member_states(ens.model.state_dict())]
+    print(f"trainers: dropout MLP EnsembleTrainer member_loss="
+          f"{reruns[0][1]} rerun bit-equal {bit_equal}; one step of each "
+          f"member from one start on one batch: losses {mask_losses}")
+    if not bit_equal or len(set(mask_losses)) != MEMBERS \
+            or not np.isfinite(reruns[0][1]).all():
+        raise SystemExit("dropout: members draw one mask, or a rerun "
+                         "differs")
+    res["dropout"] = {"member_loss": reruns[0][1],
+                      "mask_step_losses": mask_losses}
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"trainers: phase took {res['phase_s']:.1f} s")
+    return res, counts, routes
+
+
 def _gn_summary(timing, mix, pre):
     """The ``kernels`` line's fields of a GroupNorm kernel: times
     launch-weighted over the path's (shape, ReLU) mix, the two-pass
@@ -2960,8 +3208,13 @@ def main() -> int:
     hop_timing = _time_hops(attention, torch)
     torch.cuda.empty_cache()
     seq, hop_counts = _seq_train(args.seed, torch, np)
+    torch.cuda.empty_cache()
 
-    # ---- 8. kernel table ---------------------------------------------
+    # ---- 8. the rest of the Trainer family -----------------------------
+    family, family_counts, family_routes = _trainer_family(
+        args.seed, torch, np, fb, gn)
+
+    # ---- 9. kernel table ---------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts), and over each
     # path's own: the serving prefills and the training shape; the
@@ -3015,15 +3268,20 @@ def main() -> int:
             "ptxas": ptxas[name]})
     # the GroupNorm kernels' numbers are launch-weighted over the PS
     # path's (shape, ReLU) mix
+    gn_paths = {"ps_train": ps_counts,
+                "averaging_train": family_counts["averaging_train"],
+                "ensemble_train": family_counts["ensemble_train"]}
+    gn_routes = {"ps_train": ps["group_norm_routes"], **family_routes}
     for name, pre, out, line in (("group_norm_fwd", "fwd", "y", 56),
                                  ("group_norm_bwd", "bwd", "dx", 83)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "distkeras_tpu_torch/csrc/group_norm.cu",
             "replaces": f"distkeras_tpu/ops/pallas_kernels.py:{line}",
-            "launches": ps_counts[name],
-            "launches_by_path": {"ps_train": ps_counts[name]},
-            "launches_by_route": {r: ps["group_norm_routes"][f"{pre}_{r}"]
+            "launches": sum(c[name] for c in gn_paths.values()),
+            "launches_by_path": {p: c[name] for p, c in gn_paths.items()},
+            "launches_by_route": {r: sum(v[f"{pre}_{r}"]
+                                         for v in gn_routes.values())
                                   for r in ("one_pass", "two_pass")},
             "max_abs_err": max(r[f"{out}_err"] for r in gn_rows
                                if r["dtype"] == "bfloat16"),
@@ -3055,8 +3313,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "distkeras_tpu_torch/csrc/fused_block.cu",
             "replaces": f"distkeras_tpu/ops/fused_block.py:{line}",
-            "launches": fb_counts[name],
-            "launches_by_path": {"fused_train": fb_counts[name]},
+            "launches": fb_counts[name]
+            + family_counts["sync_train"][name],
+            "launches_by_path": {
+                "fused_train": fb_counts[name],
+                "sync_train": family_counts["sync_train"][name]},
             "max_abs_err": max(r[f"{o}_err"] for r in fb_rows for o in outs
                                if r["dtype"] == "bfloat16"
                                and r["kernel"] == name.rsplit("_", 1)[0]),
@@ -3131,7 +3392,8 @@ def main() -> int:
             "fused_train": fused, "hop_checks": hop_rows,
             "hop_timing": [{"kernel": k[0], "hop": k[1], **v}
                            for k, v in hop_timing.items()],
-            "seq_train": seq, "kernels": kernels}, indent=1))
+            "seq_train": seq, "trainer_family": family,
+            "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """distkeras_tpu_torch: the PyTorch/CUDA port of distkeras_tpu.
 
-Three slices so far, on an NVIDIA H100: ``SingleTrainer`` trains
-``TransformerLM``, ``DecodeEngine`` serves it, and the parameter-server
-family (``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``, ``EAMSGD``)
-trains the MLP, ConvNet and ResNet through the emulated commit rounds.
-Attention and GroupNorm run hand-written CUDA kernels, forward and
-backward (``ops/attention.py``, ``ops/group_norm.py``, ``csrc/``).  Entry points run on ``cuda`` unless
+On an NVIDIA H100: ``SingleTrainer`` and ``SyncTrainer`` train
+``TransformerLM`` and the MLP, ConvNet and ResNet, ``DecodeEngine``
+serves the LM, the parameter-server family (``DOWNPOUR``, ``ADAG``,
+``DynSGD``, ``AEASGD``, ``EAMSGD``) trains through the emulated commit
+rounds, and ``EnsembleTrainer``/``AveragingTrainer`` train members on
+disjoint shards.  Attention, GroupNorm and the fused ResNet bottleneck
+run hand-written CUDA kernels, forward and backward
+(``ops/attention.py``, ``ops/group_norm.py``, ``ops/fused_block.py``,
+``csrc/``).  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``, and raise when no card is present.
 The package imports neither JAX nor ``distkeras_tpu``.
 """
@@ -15,5 +18,5 @@ from distkeras_tpu_torch.models import (  # noqa: F401
     ModelSpec, TransformerLM, build_model, generate, model_config)
 from distkeras_tpu_torch.serving import DecodeEngine, ShedError  # noqa: F401
 from distkeras_tpu_torch.trainers import (  # noqa: F401
-    ADAG, AEASGD, DOWNPOUR, EAMSGD, DistributedTrainer, DynSGD,
-    SingleTrainer, Trainer)
+    ADAG, AEASGD, DOWNPOUR, EAMSGD, AveragingTrainer, DistributedTrainer,
+    DynSGD, EnsembleTrainer, SingleTrainer, SyncTrainer, Trainer)

@@ -30,6 +30,12 @@ spellings map as they nest: ``AdaptiveGroupNorm_i/GroupNorm_0/scale``
 (``norm="group_pallas"``).  The fused bottleneck's raw ``[C_in, C_out]``
 kernels (``conv1``, ``convd``, ``conv3``) keep flax's layout, the one its
 kernels read, so they copy unchanged both ways.
+
+``variables_from_flax({"params": ..., "batch_stats": ...})`` adds the
+ResNet's ``norm="batch"`` running statistics: flax's
+``batch_stats/_BatchNormRelu_i/BatchNorm_0/{mean,var}`` are the port's
+buffers of the same path, leaf by leaf.  ``variables_to_flax`` is the
+reverse; ``params_to_flax`` leaves the statistics out.
 """
 
 from __future__ import annotations
@@ -111,6 +117,21 @@ def params_from_flax(tree: Mapping) -> dict:
     return sd
 
 
+def variables_from_flax(variables: Mapping) -> dict:
+    """flax variables (``params`` and, for ``norm="batch"``,
+    ``batch_stats``; numpy leaves) -> the port's ``state_dict``, the
+    statistics as buffers."""
+    return {**params_from_flax(variables["params"]),
+            **_flat_from_flax(variables.get("batch_stats", {}))}
+
+
+def _is_batch_stat(name: str) -> bool:
+    """A BatchNorm running statistic (``..BatchNorm_0.mean``/``.var``)."""
+    *path, leaf = name.split(".")
+    return leaf in ("mean", "var") and bool(path) \
+        and path[-1].startswith("BatchNorm_")
+
+
 def _np(x) -> np.ndarray:
     return torch.as_tensor(x).detach().float().cpu().numpy()
 
@@ -155,7 +176,8 @@ def params_to_flax(state_dict: Mapping, num_heads: int | None = None
     ConvNet and ResNet need no more than their ``state_dict``."""
     sd = state_dict
     if "embed.weight" not in sd:
-        return _flat_to_flax(sd)
+        return _flat_to_flax({k: v for k, v in sd.items()
+                              if not _is_batch_stat(k)})
     if num_heads is None:
         raise ValueError("a TransformerLM state_dict needs num_heads")
     n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
@@ -181,3 +203,14 @@ def params_to_flax(state_dict: Mapping, num_heads: int | None = None
             "Dense_0": _dense_to_flax(sd, f"{pre}.mlp_in"),
             "Dense_1": _dense_to_flax(sd, f"{pre}.mlp_out")}
     return tree
+
+
+def variables_to_flax(state_dict: Mapping) -> dict:
+    """The port's MLP, ConvNet or ResNet ``state_dict`` -> flax variables
+    ``{"params": ...}``, plus ``"batch_stats"`` where it holds BatchNorm
+    statistics: the reverse of ``variables_from_flax``."""
+    out = {"params": params_to_flax(state_dict)}
+    stats = {k: v for k, v in state_dict.items() if _is_batch_stat(k)}
+    if stats:
+        out["batch_stats"] = _flat_to_flax(stats)
+    return out

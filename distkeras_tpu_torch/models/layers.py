@@ -15,7 +15,7 @@ size pads ``(0, 1)`` where torch's ``padding=1`` would pad ``(1, 1)``.
 ``FlaxInit.init_params`` draws flax's default initializers once:
 kernels ``lecun_normal`` (truncated normal, std ``fan_in ** -0.5``),
 biases 0, norm scales 1 (0 where a block zero-inits its last norm) and
-norm biases 0.  A module whose leaves have other names (the fused
+norm biases 0; BatchNorm's running statistics start at mean 0, var 1.  A module whose leaves have other names (the fused
 bottleneck's raw ``[C_in, C_out]`` kernels and ``gn1_scale``) names their
 initializers in a ``flax_init`` dict.  Modules are built on the meta
 device, so torch's own initializers draw nothing.
@@ -109,6 +109,30 @@ class Conv(nn.Module):
         return F.conv2d(F.pad(x, (w0, w1, h0, h1)), w, b, self.stride)
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, deterministic=not train)``: in train mode
+    each element is kept with probability ``1 - rate`` and a kept one
+    becomes ``x / (1 - rate)``, in ``x``'s dtype; the identity in eval
+    mode or at rate 0.  The mask comes from ``rng``, a
+    ``torch.Generator`` on ``x``'s device (flax's ``"dropout"`` rng), so
+    each training state draws its own."""
+    if not train or rate == 0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in train mode draws its mask from a "
+                         "generator: pass rng= (TrainState.rng)")
+    if rate == 1:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    # a true division by the rate rounded to x's dtype, as jnp divides by
+    # a Python float (CUDA turns a division by a Python scalar into a
+    # product with its reciprocal)
+    scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros_like(x))
+
+
 def max_pool_same(x, window: int, stride: int):
     """flax ``nn.max_pool(..., padding="SAME")``: pads with -inf,
     ``(0, 1)`` at a stride-2 window of an even size."""
@@ -133,13 +157,17 @@ class FlaxInit(nn.Module):
                     ) -> dict:
         """f32 parameters on the CPU, drawn as the JAX package's flax
         initializers draw them (keys and shapes are the
-        ``state_dict``'s).  The draws come from ``generator`` (default:
-        torch's global one), so they differ from the JAX package's:
-        carry weights across with ``convert``."""
+        ``state_dict``'s), and the buffers as flax starts them
+        (BatchNorm's running ``var`` 1, ``mean`` 0).  The draws come
+        from ``generator`` (default: torch's global one), so they differ
+        from the JAX package's: carry weights across with ``convert``."""
         out = {}
         for mname, mod in self.named_modules():
             pre = f"{mname}." if mname else ""
             named = getattr(mod, "flax_init", {})
+            for leaf, b in mod.named_buffers(recurse=False):
+                fill = torch.ones if leaf == "var" else torch.zeros
+                out[pre + leaf] = fill(b.shape)
             for leaf, p in mod.named_parameters(recurse=False):
                 if named.get(leaf) == "lecun_in":
                     out[pre + leaf] = lecun_normal(tuple(p.shape), generator,

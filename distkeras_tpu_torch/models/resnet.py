@@ -5,7 +5,8 @@ The same configurations: basic and bottleneck blocks, stems ``conv``
 (7x7/s2) and ``space_to_depth`` (the exact 4x4/s1 re-layout of the 7x7/s2
 stem over a 2x2 phase fold), norms ``group`` (``F.group_norm``),
 ``group_pallas`` (the hand-written GroupNorm kernels of
-``ops/group_norm.py``) and ``none``; bf16 compute with f32 parameters;
+``ops/group_norm.py``), ``batch`` (flax's ``nn.BatchNorm``) and
+``none``; bf16 compute with f32 parameters;
 ``fusion="pallas_block"`` / ``"pallas_tail"`` (``fusion_stages``), the
 bottleneck lowered through the fused-block kernels of
 ``ops/fused_block.py`` (``FusedBottleneckBlock``).
@@ -16,14 +17,22 @@ GroupNorm kernels read as ``[B, HW, C]`` without a copy.
 Parameters keep flax's module names (``Conv_0``, ``AdaptiveGroupNorm_0``,
 ``BottleneckBlock_3``, ``Dense_0``, with ``GroupNorm_0`` nested under
 ``AdaptiveGroupNorm_i`` for ``norm="group"`` as flax nests it), so
-``convert`` maps a JAX tree leaf by leaf.  flax numbers the blocks per
-class, so ``fusion_stages=(0, 1)`` gives ``FusedBottleneckBlock_0..6``
-then ``BottleneckBlock_0..8``.  ``norm="batch"`` (running statistics,
-worker-local model state) is not ported yet.
+``convert`` maps a JAX tree leaf by leaf.  A norm module is named by the
+class ``_norm`` builds, as flax names it: ``norm="batch"`` gives
+``_BatchNormRelu_i/BatchNorm_0/{scale,bias}`` and the running
+statistics ``{mean,var}`` as buffers (flax's ``batch_stats``).  flax
+numbers the blocks per class, so ``fusion_stages=(0, 1)`` gives
+``FusedBottleneckBlock_0..6`` then ``BottleneckBlock_0..8``.
+
+``forward(x, train=False)`` takes flax's mode: in train mode BatchNorm
+normalizes by the batch's statistics and updates its running ones (see
+``_BatchNorm``), in eval mode it reads the running ones; the other norms
+ignore the mode.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -36,11 +45,6 @@ from distkeras_tpu_torch.models.layers import (Conv, Dense, FlaxInit,
                                                compute_dtype, max_pool_same)
 from distkeras_tpu_torch.ops import fused_block
 from distkeras_tpu_torch.ops.group_norm import group_norm
-
-def _unsupported(key: str, item: str):
-    return NotImplementedError(
-        f"{key} is not ported to distkeras_tpu_torch yet ({item} in "
-        "ROADMAP.md)")
 
 
 class _GroupNormParams(nn.Module):
@@ -74,7 +78,7 @@ class AdaptiveGroupNorm(nn.Module):
             self.scale = nn.Parameter(torch.empty(channels))
             self.bias = nn.Parameter(torch.empty(channels))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         if self.impl == "pallas":
             return group_norm(x, self.scale, self.bias, groups=self.groups,
                               relu=self.relu)
@@ -94,22 +98,90 @@ class _Identity(nn.Module):
         super().__init__()
         self.relu = relu
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         return F.relu(x) if self.relu else x
 
 
+class _BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the
+    channels of a ``[B, C, H, W]`` tensor: parameters ``scale`` and
+    ``bias``, running statistics ``mean`` and ``var`` (f32 buffers in
+    every compute dtype; no ``num_batches_tracked``, which flax lacks).
+
+    flax's arithmetic, not ``nn.BatchNorm2d``'s: the batch statistics
+    are taken in f32, the variance biased (``E[x^2] - E[x]^2`` clamped
+    at 0, flax's ``use_fast_variance``), the running update ``0.9 *
+    running + 0.1 * batch`` (torch would use the unbiased variance), and
+    ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32,
+    rounded once to ``x``'s dtype."""
+
+    momentum, eps = 0.9, 1e-5
+
+    def __init__(self, channels: int, zero_scale: bool):
+        super().__init__()
+        self.zero_scale = zero_scale
+        self.scale = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("mean", torch.empty(channels,
+                                                 dtype=torch.float32))
+        self.register_buffer("var", torch.empty(channels,
+                                                dtype=torch.float32))
+
+    def forward(self, x, train: bool):
+        """Train mode normalizes by this batch's statistics and writes
+        the updated running ones into the ``mean`` and ``var`` it was
+        given, in place (the train step hands it a copy of the state's
+        and keeps that); eval mode normalizes by the running ones."""
+        x32 = x.float()
+        if train:
+            dims = (0, 2, 3)
+            mean = x32.mean(dims)
+            var = ((x32 * x32).mean(dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+class _BatchNormRelu(nn.Module):
+    """The reference's ``_BatchNormRelu``: ``BatchNorm_0`` and an
+    optional ReLU, the same factory surface as ``AdaptiveGroupNorm``."""
+
+    def __init__(self, channels: int, relu: bool = False,
+                 zero_scale: bool = False):
+        super().__init__()
+        self.relu = relu
+        self.BatchNorm_0 = _BatchNorm(channels, zero_scale)
+
+    def forward(self, x, train: bool = False):
+        y = self.BatchNorm_0(x, train)
+        return F.relu(y) if self.relu else y
+
+
 def _norm(norm: str):
-    """``(channels, relu=, zero_scale=) -> module`` for ``norm``."""
+    """``(channels, relu=, zero_scale=) -> module`` for ``norm``: a class
+    or a ``functools.partial`` of one (``_norm_name`` reads its name)."""
     if norm == "batch":
-        raise _unsupported("norm='batch'",
-                           "queue 3i, BatchNorm's worker-local state")
+        return _BatchNormRelu
     if norm == "group":
         return AdaptiveGroupNorm
     if norm == "group_pallas":
-        return lambda c, **kw: AdaptiveGroupNorm(c, impl="pallas", **kw)
+        return functools.partial(AdaptiveGroupNorm, impl="pallas")
     if norm == "none":
         return _Identity
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def _norm_name(make) -> str:
+    """The class name flax gives a norm built by ``make``: its modules
+    are ``<name>_0``, ``<name>_1``, ... in each parent."""
+    return getattr(make, "func", make).__name__
 
 
 def s2d_input(x: torch.Tensor) -> torch.Tensor:
@@ -131,57 +203,72 @@ def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 4 * c_in, c_out)
 
 
-class BasicBlock(nn.Module):
+class _Block(nn.Module):
+    """A block whose norms, built by ``norm``, are named as flax names
+    them (``_norm_name``), numbered in order of use."""
+
+    def _add_norm(self, norm, *args, **kwargs):
+        name = f"{_norm_name(norm)}_{self.num_norms}"
+        self.add_module(name, norm(*args, **kwargs))
+        self.num_norms += 1
+
+    def _norm_at(self, i: int) -> nn.Module:
+        return self.get_submodule(f"{self.norm_name}_{i}")
+
+
+class BasicBlock(_Block):
     def __init__(self, in_channels: int, filters: int, stride: int, norm,
                  dtype: torch.dtype):
         super().__init__()
+        self.norm_name, self.num_norms = _norm_name(norm), 0
         self.Conv_0 = Conv(in_channels, filters, (3, 3), stride,
                            use_bias=False, dtype=dtype)
-        self.AdaptiveGroupNorm_0 = norm(filters, relu=True)
+        self._add_norm(norm, filters, relu=True)
         self.Conv_1 = Conv(filters, filters, (3, 3), use_bias=False,
                            dtype=dtype)
         # zero-init the last norm's scale so blocks start as identity
-        self.AdaptiveGroupNorm_1 = norm(filters, zero_scale=True)
+        self._add_norm(norm, filters, zero_scale=True)
         self.project = in_channels != filters or stride != 1
         if self.project:
             self.Conv_2 = Conv(in_channels, filters, (1, 1), stride,
                                use_bias=False, dtype=dtype)
-            self.AdaptiveGroupNorm_2 = norm(filters)
+            self._add_norm(norm, filters)
 
-    def forward(self, x):
-        y = self.AdaptiveGroupNorm_0(self.Conv_0(x))
-        y = self.AdaptiveGroupNorm_1(self.Conv_1(y))
-        residual = (self.AdaptiveGroupNorm_2(self.Conv_2(x))
+    def forward(self, x, train: bool = False):
+        y = self._norm_at(0)(self.Conv_0(x), train)
+        y = self._norm_at(1)(self.Conv_1(y), train)
+        residual = (self._norm_at(2)(self.Conv_2(x), train)
                     if self.project else x)
         return F.relu(residual + y)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(_Block):
     def __init__(self, in_channels: int, filters: int, stride: int, norm,
                  dtype: torch.dtype):
         super().__init__()
         out = 4 * filters
+        self.norm_name, self.num_norms = _norm_name(norm), 0
         self.Conv_0 = Conv(in_channels, filters, (1, 1), use_bias=False,
                            dtype=dtype)
-        self.AdaptiveGroupNorm_0 = norm(filters, relu=True)
+        self._add_norm(norm, filters, relu=True)
         self.Conv_1 = Conv(filters, filters, (3, 3), stride,
                            use_bias=False, dtype=dtype)
-        self.AdaptiveGroupNorm_1 = norm(filters, relu=True)
+        self._add_norm(norm, filters, relu=True)
         self.Conv_2 = Conv(filters, out, (1, 1), use_bias=False,
                            dtype=dtype)
         # zero-init the last norm's scale so blocks start as identity
-        self.AdaptiveGroupNorm_2 = norm(out, zero_scale=True)
+        self._add_norm(norm, out, zero_scale=True)
         self.project = in_channels != out or stride != 1
         if self.project:
             self.Conv_3 = Conv(in_channels, out, (1, 1), stride,
                                use_bias=False, dtype=dtype)
-            self.AdaptiveGroupNorm_3 = norm(out)
+            self._add_norm(norm, out)
 
-    def forward(self, x):
-        y = self.AdaptiveGroupNorm_0(self.Conv_0(x))
-        y = self.AdaptiveGroupNorm_1(self.Conv_1(y))
-        y = self.AdaptiveGroupNorm_2(self.Conv_2(y))
-        residual = (self.AdaptiveGroupNorm_3(self.Conv_3(x))
+    def forward(self, x, train: bool = False):
+        y = self._norm_at(0)(self.Conv_0(x), train)
+        y = self._norm_at(1)(self.Conv_1(y), train)
+        y = self._norm_at(2)(self.Conv_2(y), train)
+        residual = (self._norm_at(3)(self.Conv_3(x), train)
                     if self.project else x)
         return F.relu(residual + y)
 
@@ -238,7 +325,7 @@ class FusedBottleneckBlock(nn.Module):
         setattr(self, f"{norm}_bias", nn.Parameter(torch.empty(cout)))
         self.flax_init.update({conv: "lecun_in", f"{norm}_scale": "ones"})
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt = self.dtype
         if self.fuse_op1:
             x = fused_block.channels_last(x)
@@ -307,7 +394,8 @@ class ResNet(FlaxInit):
                 self.Conv_0 = Conv(c, width, (7, 7), 2,
                                    padding=[(3, 3), (3, 3)],
                                    use_bias=False, dtype=cd)
-            self.AdaptiveGroupNorm_0 = make_norm(width, relu=True)
+            self.stem_norm = f"{_norm_name(make_norm)}_0"
+            self.add_module(self.stem_norm, make_norm(width, relu=True))
             block = BottleneckBlock if bottleneck else BasicBlock
             chans, counts, self.block_names = width, {}, []
             for stage, size in enumerate(stage_sizes):
@@ -332,15 +420,18 @@ class ResNet(FlaxInit):
             self.Dense_0 = Dense(chans, num_classes)
         self._init_from_flax()
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, rng=None):
+        """``train``: flax's mode (BatchNorm's batch statistics and
+        their update); ``rng``: unused (no dropout), taken as every
+        model's forward takes it."""
         x = x.to(self.dtype)
         if self.stem == "space_to_depth":
             x = s2d_input(x)
         x = x.permute(0, 3, 1, 2)       # NHWC -> channels-last NCHW view
-        x = self.AdaptiveGroupNorm_0(self.Conv_0(x))
+        x = self.get_submodule(self.stem_norm)(self.Conv_0(x), train)
         x = max_pool_same(x, 3, 2)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return self.Dense_0(x.mean(dim=(2, 3)))
 
 

@@ -224,7 +224,9 @@ class TransformerLM(nn.Module):
     """The JAX package's ``TransformerLM`` with the same config keys.
 
     ``forward(tokens)`` is the training-mode forward (``[B, T, V]``
-    f32 logits).  Decode mode (``decode=True`` or a ``cache`` passed)
+    f32 logits); ``train`` and ``rng`` (flax's mode and dropout stream,
+    which the train step passes every model) change nothing: the LM has
+    no dropout.  Decode mode (``decode=True`` or a ``cache`` passed)
     returns ``(logits, cache)``: logits of the last position, or of
     ``last_index``, or of every position with ``logits_all``; the cache
     is written in place.  A multi-token chunk at a 128-aligned length
@@ -401,7 +403,8 @@ class TransformerLM(nn.Module):
         positions = ring.ranks[0] * block + torch.arange(t, device=dev)
         return positions[None], block * ring.size
 
-    def forward(self, tokens, *, cache: Optional[KVCache] = None,
+    def forward(self, tokens, train: bool = False, rng=None, *,
+                cache: Optional[KVCache] = None,
                 slot_pos=None, last_index: Optional[int] = None,
                 logits_all: bool = False):
         tokens = tokens.long()

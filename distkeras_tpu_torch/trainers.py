@@ -1,5 +1,8 @@
-"""Trainers of the port: the ``Trainer`` base and ``SingleTrainer``, the
-reference's sequential baseline, from ``distkeras_tpu/trainers.py``.
+"""Trainers of the port, from ``distkeras_tpu/trainers.py``: the
+``Trainer`` base, ``SingleTrainer`` (the sequential baseline),
+``SyncTrainer`` (synchronous data parallelism), the parameter-server
+family and the member trainers (``EnsembleTrainer``,
+``AveragingTrainer``).
 
 The same front door as the JAX package: a model config (or
 ``ModelSpec``), a loss and an optimizer by name, a ``Dataset``;
@@ -19,15 +22,21 @@ The PS family (``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``,
 data path: each epoch shuffled with ``seed + 17 * epoch``,
 ``repartition(num_workers)``, each worker's rows stacked into batches,
 ``[W, window, B, ...]`` per round, one commit order per round from
-``commit_orders`` (seeded from ``seed + 2``).  ``SyncTrainer``,
-Ensemble/Averaging, the host and mesh tiers, checkpoints, per-epoch
-evaluation and profiling are not ported yet: see ROADMAP.md.
+``commit_orders`` (seeded from ``seed + 2``).
+
+Every training state carries its own random stream (``TrainState.rng``,
+dropout's masks), seeded as the reference keys its states: ``seed + 1``
+for Single and Sync, one stream per PS worker and per member split from
+it.  Its model state (BatchNorm's running statistics) stays its own:
+the PS rules exchange parameters only.  The host and mesh tiers,
+SyncTrainer's tensor and pipeline parallelism, checkpoints, per-epoch
+evaluation and profiling are not ported yet: see ROADMAP.md §1.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Mapping, Sequence
+from typing import ClassVar, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -50,14 +59,15 @@ from distkeras_tpu_torch.workers import (
     make_train_step,
     make_window_runner,
     resolve_optimizer,
+    rng_stream,
     single_head,
 )
 
 
-def _unsupported(key: str, item: str):
+def _unsupported(key: str, item: int):
     return NotImplementedError(
-        f"{key} is not ported to distkeras_tpu_torch yet ({item} in "
-        "ROADMAP.md)")
+        f"{key} is not ported to distkeras_tpu_torch yet (ROADMAP.md §1 "
+        f"item {item})")
 
 
 def _resolve_spec(model) -> ModelSpec:
@@ -88,8 +98,7 @@ def _epoch_segments(dataset: Dataset, seed: int):
     """One epoch as in-memory ``Dataset`` segments: the whole set,
     shuffled with ``seed``."""
     if not isinstance(dataset, Dataset):
-        raise _unsupported(f"training on a {type(dataset).__name__}",
-                           "queue 3b, sharded datasets")
+        raise _unsupported(f"training on a {type(dataset).__name__}", 5)
     return [dataset.shuffle(seed=seed)]
 
 
@@ -109,18 +118,16 @@ class Trainer:
         ``workers.resolve_schedule``).  ``device``: where the model
         trains (default ``cuda``)."""
         if checkpoint_dir is not None:
-            raise _unsupported("checkpoint_dir", "queue 3j, checkpoints")
+            raise _unsupported("checkpoint_dir", 3)
         if profile_dir is not None:
-            raise _unsupported("profile_dir", "queue 4b, profiling")
+            raise _unsupported("profile_dir", 8)
         self.device = resolve_device(device)
         self.spec = _resolve_spec(model)
         self.seed = int(seed)
         self.loss, self.label_col = single_head(loss, label_col)
         # the model's own init is the trainer's default start, drawn
         # from ``seed``
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(self.seed)
-            self.model = self.spec.build(device=self.device)
+        self.model = self._build_seeded(self.seed)
         self.worker_optimizer = worker_optimizer
         self.learning_rate = learning_rate
         self.features_col = features_col
@@ -135,6 +142,14 @@ class Trainer:
         #: ``aux_loss``, ``grad_norm``; numpy, one entry per step),
         #: fetched from the device with the epoch losses
         self.step_metrics: dict[str, np.ndarray] = {}
+
+    def _build_seeded(self, seed: int) -> torch.nn.Module:
+        """The model, its init drawn from torch's generator seeded with
+        ``seed`` (the global one, forked: the caller's draws are
+        untouched)."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return self.spec.build(device=self.device)
 
     def _tx(self):
         return resolve_optimizer(self.worker_optimizer, self.learning_rate)
@@ -161,10 +176,9 @@ class Trainer:
         """Train on ``dataset``; returns the trained ``state_dict`` (f32
         parameters), which is also loaded into ``self.model``."""
         if resume_from is not None:
-            raise _unsupported("resume_from", "queue 3j, checkpoints")
+            raise _unsupported("resume_from", 3)
         if eval_dataset is not None:
-            raise _unsupported("eval_dataset",
-                               "queue 3j, evaluators and predictors")
+            raise _unsupported("eval_dataset", 3)
         start = time.time()
         try:
             return self._train(dataset, initial_variables)
@@ -179,15 +193,22 @@ class SingleTrainer(Trainer):
     """Sequential baseline: one worker, whole dataset (reference
     ``SingleTrainer``).  Steps run from a Python loop over chunks of
     ``SCAN_CHUNK`` batches; each chunk's metrics come to the host once,
-    not every step."""
+    not every step.  The state's stream is seeded with ``seed + 1``."""
 
     SCAN_CHUNK = 64  # batches per chunk (host fetch granularity)
+
+    def _global_batch(self) -> int:
+        """Rows per step."""
+        return self.batch_size
 
     def _train(self, dataset, initial_variables):
         tx = self._tx()
         state = TrainState.create(self.model,
                                   self._init_variables(initial_variables),
-                                  tx, device=self.device)
+                                  tx, device=self.device,
+                                  rng=rng_stream(self.seed + 1,
+                                                 device=self.device))
+        global_batch = self._global_batch()
         step = make_train_step(self.model, self.loss, tx,
                                self.features_col, self.label_col)
         run_chunk = make_window_runner(step)
@@ -195,7 +216,7 @@ class SingleTrainer(Trainer):
         for epoch in range(self.num_epoch):
             losses = []
             for segment in _epoch_segments(dataset, self.seed + epoch):
-                stacked = _stack_batches(segment, self.batch_size,
+                stacked = _stack_batches(segment, global_batch,
                                          self._columns())
                 if stacked is None:
                     continue
@@ -211,7 +232,8 @@ class SingleTrainer(Trainer):
                     losses.append(host["loss"])
                     fetched.append(host)
             if not losses:
-                raise ValueError("dataset smaller than one batch")
+                raise ValueError(f"dataset smaller than one batch "
+                                 f"({global_batch} rows)")
             # in memory, the segments never keep the step waiting
             self._record(epoch_loss=float(np.concatenate(losses).mean()),
                          segment_stall_s=0.0)
@@ -222,9 +244,64 @@ class SingleTrainer(Trainer):
         return self.trained_variables
 
 
+class SyncTrainer(SingleTrainer):
+    """Synchronous data parallelism (reference ``SyncTrainer``, its
+    data-parallel arm, ``_train_dp``): one step over the global batch of
+    ``batch_size * num_workers`` rows, each epoch shuffled with ``seed +
+    epoch``.  The reference shards that batch across a mesh of workers
+    and all-reduces the gradients; the port runs it whole on its one
+    device, the same mean gradient, so it equals ``SingleTrainer`` at
+    ``batch_size * num_workers`` step for step.  ``num_workers=None``
+    means 1 (the one device).  Not in the original dist-keras: it is the
+    convergence control arm of the async family.  History:
+    ``epoch_loss``, ``segment_stall_s``.
+
+    ``model_parallel > 1``, ``tp_rules`` and ``pipeline_stages > 1``
+    (tensor and pipeline parallelism) raise ``NotImplementedError``;
+    values the reference refuses raise its ``ValueError``."""
+
+    SCAN_CHUNK = 32
+
+    def __init__(self, model, num_workers: int | None = None,
+                 model_parallel: int = 1, tp_rules=None,
+                 pipeline_stages: int = 1,
+                 pipeline_microbatches: int | None = None, **kwargs):
+        super().__init__(model, **kwargs)
+        self.num_workers = int(num_workers or 1)
+        if self.num_workers < 1:
+            raise ValueError(
+                f"num_workers must be >= 1, got {num_workers}")
+        self.model_parallel = int(model_parallel)
+        if self.model_parallel < 1:
+            raise ValueError(
+                f"model_parallel must be >= 1, got {model_parallel}")
+        self.tp_rules = tp_rules
+        self.pipeline_stages = int(pipeline_stages)
+        if self.pipeline_stages < 1:
+            raise ValueError(
+                f"pipeline_stages must be >= 1, got {pipeline_stages}")
+        if self.pipeline_stages > 1 and self.model_parallel > 1:
+            raise ValueError(
+                "pipeline_stages and model_parallel are mutually "
+                "exclusive (pp x tp composition is not implemented)")
+        self.pipeline_microbatches = (
+            None if pipeline_microbatches is None
+            else int(pipeline_microbatches))
+        if self.model_parallel > 1:
+            raise _unsupported("model_parallel > 1", 9)
+        if tp_rules is not None:
+            raise _unsupported("tp_rules", 9)
+        if self.pipeline_stages > 1:
+            raise _unsupported("pipeline_stages > 1", 9)
+
+    def _global_batch(self) -> int:
+        return self.batch_size * self.num_workers
+
+
 # the JAX DistributedTrainer's keyword arguments of tiers and layers the
-# port does not have yet, with their defaults and ROADMAP.md items
-_HOST_WIRE = "queue 4a, the host-wire PS"
+# port does not have yet, with their defaults and ROADMAP.md §1 items
+_HOST_WIRE = 4
+_MESH_TIER = 8
 _UNPORTED_KWARGS = {
     "transport": ("inprocess", _HOST_WIRE),
     "max_worker_failures": (0, _HOST_WIRE),
@@ -239,12 +316,12 @@ _UNPORTED_KWARGS = {
     "ps_groups": (None, _HOST_WIRE),
     "ps_snapshot_path": (None, _HOST_WIRE),
     "ps_snapshot_every": (0, _HOST_WIRE),
-    "comm_dtype": ("float32", "queue 4b, the mesh tier"),
-    "comm_codec": (None, "queue 4b, the mesh tier"),
-    "metrics_every": (1, "queue 4b, the mesh tier"),
-    "attrib_every": (0, "queue 4b, the mesh tier"),
-    "tp_rules": (None, "queue 5, tensor parallelism"),
-    "checkpoint_every_rounds": (None, "queue 3j, checkpoints"),
+    "comm_dtype": ("float32", _MESH_TIER),
+    "comm_codec": (None, _MESH_TIER),
+    "metrics_every": (1, _MESH_TIER),
+    "attrib_every": (0, _MESH_TIER),
+    "tp_rules": (None, 9),
+    "checkpoint_every_rounds": (None, 3),
 }
 
 
@@ -259,8 +336,13 @@ class DistributedTrainer(Trainer):
     amplification passes the measured stability scale, ``"scale"``
     divides the rate by the family's measured divisor, ``"off"``.
 
-    ``train()`` returns the center's ``state_dict`` (f32), also kept as
-    ``trained_variables`` and in ``parameter_server_state``; history:
+    Each worker keeps its own model state (BatchNorm's running
+    statistics) and its own random stream (``rng_stream(seed + 1,
+    w)``): the rules exchange parameters only.  ``train()`` returns the
+    center's parameters (f32) with worker 0's model state, as the
+    reference does, also kept as ``trained_variables`` and loaded into
+    ``self.model``; the center is in ``parameter_server_state`` and each
+    worker's final model state in ``worker_model_states``; history:
     ``round_loss``, ``staleness`` (per round, each worker's commit
     position), ``dropped_tail_batches``, ``epoch_loss``,
     ``segment_stall_s``.  ``epoch_time_s``: each epoch's wall seconds,
@@ -287,17 +369,14 @@ class DistributedTrainer(Trainer):
         if self.tier.data_plane != "emulated":
             raise _unsupported(
                 f"fidelity={fidelity!r}",
-                "queue 4a, the host-wire PS" if fidelity == "host"
-                else "queue 4b, the mesh tier")
+                _HOST_WIRE if fidelity == "host" else _MESH_TIER)
         if int(model_parallel) != 1:
-            raise _unsupported("model_parallel > 1",
-                               "queue 5, tensor parallelism")
+            raise _unsupported("model_parallel > 1", 9)
         import torch.distributed as dist
 
         if dist.is_available() and dist.is_initialized() \
                 and dist.get_world_size() > 1:
-            raise _unsupported("multi-host PS training",
-                               "queue 4b, the mesh tier")
+            raise _unsupported("multi-host PS training", _MESH_TIER)
         self.commit_overlap = bool(commit_overlap)
         if self.commit_overlap and not self.tier.commit_overlap:
             raise ValueError(
@@ -315,6 +394,7 @@ class DistributedTrainer(Trainer):
         self.lr_law = lr_law
         self._apply_lr_law()
         self.parameter_server_state = None
+        self.worker_model_states: list[dict] = []
         self.epoch_time_s: list[float] = []
 
     def commit_orders(self):
@@ -372,8 +452,10 @@ class DistributedTrainer(Trainer):
                       device=self.device, dtype=torch.float32, copy=True)
                   for n in names}
         workers = [TrainState.create(self.model, variables, tx,
-                                     device=self.device)
-                   for _ in range(num_workers)]
+                                     device=self.device,
+                                     rng=rng_stream(self.seed + 1, w,
+                                                    device=self.device))
+                   for w in range(num_workers)]
         step = make_train_step(self.model, self.loss, tx,
                                self.features_col, self.label_col)
         overlap = self.commit_overlap
@@ -455,7 +537,9 @@ class DistributedTrainer(Trainer):
             self._record(epoch_loss=float(np.mean(epoch_losses)),
                          segment_stall_s=round(seg_stall, 4))
         self.parameter_server_state = ps_state
-        self.trained_variables = dict(ps_state.center)
+        self.worker_model_states = [w.model_state for w in workers]
+        self.trained_variables = {**ps_state.center,
+                                  **workers[0].model_state}
         self.model.load_state_dict(self.trained_variables)
         return self.trained_variables
 
@@ -546,3 +630,145 @@ class EAMSGD(AEASGD):
             return resolve_optimizer("nesterov", self.learning_rate,
                                      m=self.momentum)
         return super()._tx()
+
+
+class _MemberParallelTrainer(Trainer):
+    """Shared engine of Ensemble/Averaging (reference
+    ``_MemberParallelTrainer``): ``num_models`` members, each its own
+    ``TrainState`` and stream (``rng_stream(seed + 1, i)``), train on
+    disjoint shards of one ``dataset.shuffle(seed).repartition(n)``;
+    each epoch member i's shard is shuffled with ``seed + 13 * epoch +
+    i`` and every member runs the fewest batches any member has.  The
+    reference ``vmap``s the members into one program; the port runs
+    them in turn on its one device, chunk by chunk (``SCAN_CHUNK``
+    steps each), which gives each member the same steps.  History:
+    ``epoch_loss`` (the members' mean), ``member_loss`` (each member's
+    epoch mean).  ``member_variables``: each member's trained
+    variables.  Checkpointing raises ``ValueError``, as the
+    reference's."""
+
+    SCAN_CHUNK = 32
+
+    #: False -> every member shares one init (the averaging setting);
+    #: True -> member i's init drawn from ``seed + i``
+    distinct_inits: ClassVar[bool] = True
+
+    def __init__(self, model, num_models: int = 2,
+                 checkpoint_dir: str | None = None, **kwargs):
+        super().__init__(model, **kwargs)
+        self.checkpoint_dir = checkpoint_dir
+        self.num_models = int(num_models)
+        self.member_variables: list[dict] = []
+
+    def train(self, dataset: Dataset, initial_variables=None,
+              resume_from: str | None = None,
+              eval_dataset: Dataset | None = None):
+        self._guard_no_checkpoint(resume_from)
+        return super().train(dataset, initial_variables,
+                             eval_dataset=eval_dataset)
+
+    def _guard_no_checkpoint(self, resume_from):
+        if resume_from is not None or self.checkpoint_dir is not None:
+            raise ValueError(
+                f"{type(self).__name__} does not support checkpointing;"
+                " checkpoint the member SingleTrainers instead")
+
+    def _member_states(self, initial_variables) -> list[TrainState]:
+        """One state per member: ``initial_variables`` for all where
+        given, else member i's init drawn from ``seed + i``
+        (``distinct_inits``) or the model's own, from ``seed``."""
+        tx = self._tx()
+        n = self.num_models
+        if initial_variables is not None:
+            inits = [dict(initial_variables)] * n
+        elif self.distinct_inits:
+            inits = [self._build_seeded(self.seed + i).state_dict()
+                     for i in range(n)]
+        else:
+            inits = [self.model.state_dict()] * n
+        return [TrainState.create(self.model, v, tx, device=self.device,
+                                  rng=rng_stream(self.seed + 1, i,
+                                                 device=self.device))
+                for i, v in enumerate(inits)]
+
+    def _train_members(self, dataset, initial_variables
+                       ) -> list[TrainState]:
+        n = self.num_models
+        states = self._member_states(initial_variables)
+        step = make_train_step(self.model, self.loss, self._tx(),
+                               self.features_col, self.label_col)
+        run_chunk = make_window_runner(step)
+        cols = self._columns()
+        # partitioned once, after one shuffle: member i sees only its own
+        # 1/n of the rows for the whole run
+        member_shards = _epoch_segments(dataset, self.seed)[0] \
+            .repartition(n)
+        for epoch in range(self.num_epoch):
+            per_member = [
+                _stack_batches(s.shuffle(seed=self.seed + 13 * epoch + i),
+                               self.batch_size, cols)
+                for i, s in enumerate(member_shards)]
+            if any(p is None for p in per_member):
+                raise ValueError("a member shard is smaller than one batch")
+            n_batches = min(len(next(iter(p.values())))
+                            for p in per_member)
+            losses = []
+            for lo in range(0, n_batches, self.SCAN_CHUNK):
+                hi = min(lo + self.SCAN_CHUNK, n_batches)
+                member_losses = []
+                for state, p in zip(states, per_member):
+                    chunk = {k: torch.from_numpy(p[k][lo:hi]).to(
+                                 self.device) for k in cols}
+                    _, metrics = run_chunk(state, chunk)
+                    member_losses.append(metrics["loss"])
+                # [M, chunk]: one device-to-host copy per chunk
+                losses.append(torch.stack(member_losses).cpu().numpy())
+            per_member_loss = np.concatenate(losses, axis=1).mean(axis=1)
+            self._record(epoch_loss=float(per_member_loss.mean()),
+                         member_loss=[float(x) for x in per_member_loss])
+        self.member_variables = [s.variables() for s in states]
+        return states
+
+
+class EnsembleTrainer(_MemberParallelTrainer):
+    """Train ``num_models`` independent members (inits from ``seed +
+    i``, disjoint data shards); returns the list of their variables
+    (reference ``EnsembleTrainer``), also kept as
+    ``ensemble_variables``; ``trained_variables`` is member 0's, which
+    is loaded into ``self.model``."""
+
+    distinct_inits: ClassVar[bool] = True
+
+    def _train(self, dataset, initial_variables):
+        self._train_members(dataset, initial_variables)
+        results = self.member_variables
+        self.trained_variables = results[0]
+        self.ensemble_variables = results
+        self.model.load_state_dict(results[0])
+        return results
+
+
+class AveragingTrainer(_MemberParallelTrainer):
+    """Train ``num_workers`` members on disjoint shards from one shared
+    init, then average their parameters: one-shot model averaging
+    (reference ``AveragingTrainer``).  Returns the mean of the members'
+    parameters with member 0's model state, also kept as
+    ``trained_variables`` and loaded into ``self.model``."""
+
+    distinct_inits: ClassVar[bool] = False
+
+    def __init__(self, model, num_workers: int = 2, **kwargs):
+        super().__init__(model, num_models=num_workers, **kwargs)
+
+    @property
+    def num_workers(self) -> int:
+        return self.num_models
+
+    def _train(self, dataset, initial_variables):
+        states = self._train_members(dataset, initial_variables)
+        with torch.no_grad():
+            mean = {k: torch.stack([s.params[k] for s in states]).mean(0)
+                    for k in states[0].params}
+        self.trained_variables = {**mean, **states[0].model_state}
+        self.model.load_state_dict(self.trained_variables)
+        return self.trained_variables

@@ -288,22 +288,46 @@ def resolve_optimizer(optimizer, learning_rate=None, **kwargs) -> Optimizer:
 # -- train state, step, window runner ---------------------------------
 
 
+def rng_stream(seed: int, *path: int, device=None) -> torch.Generator:
+    """A random stream on ``device``: a ``torch.Generator`` seeded from
+    ``seed`` and the integers ``path``, the port's ``key(seed)`` (no
+    path) and ``fold_in``/``split`` (a path per worker or member).
+    Distinct paths give unrelated streams (numpy's ``SeedSequence``
+    with ``path`` as its spawn key); the draws differ from
+    ``jax.random``'s."""
+    words = np.random.SeedSequence(seed, spawn_key=path).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(words[0]) << 31) ^ int(words[1]))
+
+
 @dataclasses.dataclass
 class TrainState:
     """Training state: the step count, f32 master ``params`` (leaf
-    tensors that require grad), the optimizer state and
-    ``model_state`` (the module's buffers; none for the LM)."""
+    tensors that require grad), the optimizer state, ``model_state``
+    (the module's buffers: BatchNorm's running statistics, f32; none for
+    the LM) and ``rng``, the state's own random stream (a
+    ``torch.Generator`` on its device; dropout draws its masks from it).
+
+    ``model_state`` and ``rng`` stay this state's own: the PS trainers
+    exchange ``params`` only (``adopt``), as the reference's rules do."""
 
     step: int
     params: Params
     opt_state: dict
     model_state: Params
+    rng: torch.Generator | None = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, variables: Mapping,
-               optimizer: Optimizer, device=None) -> "TrainState":
+               optimizer: Optimizer, device=None,
+               rng: torch.Generator | None = None) -> "TrainState":
         """``variables``: a ``state_dict`` of ``model`` (any dtype, any
-        device); parameters are copied to f32 on ``device``."""
+        device); parameters are copied to f32 on ``device``, buffers
+        (those ``variables`` lacks from ``model``) are copied in their
+        own dtype, so no two states share a tensor.  ``rng``: the
+        state's stream (``rng_stream``); a model that draws (dropout in
+        train mode) raises without one."""
         names = [n for n, _ in model.named_parameters()]
         missing = [n for n in names if n not in variables]
         if missing:
@@ -311,16 +335,18 @@ class TrainState:
         params = {n: torch.as_tensor(variables[n]).detach().to(
                       device=device, dtype=torch.float32, copy=True)
                   .requires_grad_(True) for n in names}
-        model_state = {n: torch.as_tensor(variables.get(n, b)).to(device)
+        model_state = {n: torch.as_tensor(variables.get(n, b)).detach().to(
+                           device=device, dtype=b.dtype, copy=True)
                        for n, b in model.named_buffers()}
         return cls(step=0, params=params, opt_state=optimizer.init(params),
-                   model_state=model_state)
+                   model_state=model_state, rng=rng)
 
     def adopt(self, params: Mapping[str, torch.Tensor]) -> None:
         """Take the values of ``params`` (a pulled PS center) into this
-        state's parameters, in place, keeping the optimizer state: the
-        PS round's ``worker_states.replace(params=pulled)``.  The leaves
-        stay this state's own, so the center is never aliased."""
+        state's parameters, in place, keeping the optimizer state, the
+        model state and the stream: the PS round's
+        ``worker_states.replace(params=pulled)``.  The leaves stay this
+        state's own, so the center is never aliased."""
         with torch.no_grad():
             for n, p in self.params.items():
                 p.copy_(params[n])
@@ -349,8 +375,8 @@ def single_head(loss, label_col):
         if not (all(seqs) and len(loss) == 1 and len(label_col) == 1):
             raise NotImplementedError(
                 "multi-output models (a loss and a label column per "
-                "head) are not ported to distkeras_tpu_torch yet (queue "
-                "3h in ROADMAP.md)")
+                "head) are not ported to distkeras_tpu_torch yet "
+                "(ROADMAP.md §1 item 10)")
         loss, label_col = loss[0], label_col[0]
     return loss, label_col
 
@@ -362,14 +388,24 @@ def make_train_step(model, loss, optimizer: Optimizer,
     updates ``state`` in place and returns it; ``metrics`` are device
     scalars: ``loss``, ``aux_loss`` (0: no ported model sows an
     auxiliary loss) and ``grad_norm`` (the global norm of the f32
-    gradients, as ``optax.global_norm``)."""
+    gradients, as ``optax.global_norm``).
+
+    The forward runs in train mode (``train=True``, flax's
+    ``apply(..., train=True)``) and draws its dropout masks from
+    ``state.rng``.  A train-mode BatchNorm updates the running
+    statistics it is handed in place, as ``nn.BatchNorm`` does; the step
+    hands it a copy of ``state.model_state`` and takes that copy in as
+    the new ``model_state`` (flax's ``mutable=["batch_stats"]``)."""
     loss, label_col = single_head(loss, label_col)
     loss_fn = resolve_loss(loss)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        variables = _module_variables(
-            model, {**state.params, **state.model_state})
-        logits = functional_call(model, variables, (batch[features_col],))
+        model_state = {n: b.clone() for n, b in state.model_state.items()}
+        variables = {**_module_variables(model, state.params),
+                     **model_state}
+        logits = functional_call(model, variables, (batch[features_col],),
+                                 {"train": True, "rng": state.rng})
+        state.model_state = model_state
         task_loss = loss_fn(logits, batch[label_col])
         grads = dict(zip(state.params, torch.autograd.grad(
             task_loss, list(state.params.values()))))
@@ -410,14 +446,16 @@ def make_window_runner(step_fn):
 def make_eval_step(model, loss, features_col: str = "features",
                    label_col: str = "label"):
     """Build ``eval_step(variables, batch) -> {"loss", "logits"}``
-    (no gradients; ``variables`` a ``state_dict`` in any dtype)."""
+    (no gradients; ``variables`` a ``state_dict`` in any dtype).  The
+    forward runs in eval mode: no dropout, BatchNorm on its running
+    statistics, nothing updated."""
     loss, label_col = single_head(loss, label_col)
     loss_fn = resolve_loss(loss)
 
     @torch.no_grad()
     def eval_step(variables, batch):
         logits = functional_call(model, _module_variables(model, variables),
-                                 (batch[features_col],))
+                                 (batch[features_col],), {"train": False})
         return {"loss": loss_fn(logits, batch[label_col]),
                 "logits": logits}
 

@@ -188,10 +188,16 @@ def test_s2d_helpers_match_jax():
 
 
 def test_unported_spellings_raise():
+    """The spellings the reference refuses raise its errors; the ones
+    ported since (``norm="batch"``, dropout) build."""
     base = dict(num_classes=3, stage_sizes=(1,), width=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    bn = build_model(model_config("resnet", (16, 16, 3), norm="batch",
+                                  **base), device="cpu")
+    assert "_BatchNormRelu_0.BatchNorm_0.var" in dict(bn.named_buffers())
+    with pytest.raises(ValueError, match="fusion"):
         build_model(model_config("resnet", (16, 16, 3), norm="batch",
-                                 **base), device="cpu")
+                                 fusion="pallas_block", **base),
+                    device="cpu")
     fused = build_model(model_config("resnet", (16, 16, 3),
                                      fusion="pallas_block", **base),
                         device="cpu")
@@ -211,6 +217,7 @@ def test_unported_spellings_raise():
         build_model(model_config("resnet", (15, 15, 3),
                                  stem="space_to_depth", **base),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(model_config("mlp", (4,), dropout_rate=0.1),
-                    device="cpu")
+    for family, shape in (("mlp", (4,)), ("convnet", (8, 8, 3))):
+        model = build_model(model_config(family, shape, dropout_rate=0.1),
+                            device="cpu")
+        assert model.dropout_rate == 0.1
