@@ -110,7 +110,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    other's, the returned ones worker 0's, the round time; (d) the MNIST
    MLP at ``dropout_rate=0.3`` through ``EnsembleTrainer``: the members
    draw different masks, a rerun is bit-equal;
-9. print the kernel table as one JSON line, then the device line last.
+9. checkpoints, kill-and-resume, evaluation and prediction at full
+   width, in a temporary directory removed at the end: (a) ADAG
+   (faithful) over phase 5's ResNet-50 (``norm="group_pallas"``, #5-#6),
+   2 workers, window 2, batch 32, 384 rows (3 rounds an epoch), 2
+   epochs, ``checkpoint_every_rounds=2``: the uninterrupted run, a run
+   stopped right after the save at round 2 of the second epoch, and a
+   resume from it, whose center, worker 0's model state and history
+   (``round_loss``, ``epoch_loss``, ``dropped_tail_batches``,
+   ``staleness``, ``eval_accuracy``) must equal the uninterrupted run's
+   bit for bit; (b) the same for ``SingleTrainer`` on phase 6's fused
+   path (#7-#10), 2 epochs of 2 steps, stopped after epoch 1; both with
+   ``eval_dataset`` (300 rows): one ``eval_accuracy`` an epoch; (c)
+   ``ModelPredictor`` scores the 300 rows at batch 256 (a ragged tail)
+   through #7 and #9, its logits held against the plain versions'
+   forward on the same model (``TOL_PREDICT``); on the rows relabelled
+   with the plain forward's classes, ``evaluate_model``,
+   ``AccuracyEvaluator`` and a numpy argmax must agree, at an accuracy
+   of at least ``EVAL_AGREE``; (d) every saved
+   file read back bit-equal to its state, ``serialize_params`` and a PS
+   snapshot round-tripped; the launch counts of each path, the bytes
+   and seconds of each save and load, and the predictor's images/s;
+10. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -2976,6 +2997,370 @@ def _trainer_family(seed, torch, np, fb, gn):
     return res, counts, routes
 
 
+# ---- phase 9: checkpoints, kill-and-resume, evaluation, prediction ----
+
+# (a) ADAG on phase 5's model and round (ResNet-50, norm="group_pallas",
+# kernels #5-#6), cut to 2 workers and 384 rows: 3 rounds an epoch of 2
+# workers x window 2 x batch 32, 2 epochs, a save every 2 rounds; the
+# run is stopped just after the save at round 2 of the second epoch
+CKPT_PS = {**PS, "num_workers": 2}
+CKPT_PS_ROWS, CKPT_EVERY = 384, 2
+CKPT_PS_STOP = {"epoch": 1, "round": 2}
+# (b) SingleTrainer on phase 6's fused path (#7-#10): 2 epochs of 2 steps
+# of 256, stopped after the first epoch's save
+CKPT_FUSED_ROWS = 512
+CKPT_FUSED_STOP = {"epoch": 1}
+# (c) the holdout both runs evaluate after every epoch and the predictor
+# scores: 300 rows, a ragged tail of 44 at batch 256
+HOLDOUT_ROWS, PREDICT_BATCH = 300, 256
+# the predictor's logits against the plain versions' forward on the same
+# model: per element scaled by |plain| + rms(plain), as the fused
+# kernels' rounded outputs are held (TOL_FB_ROUNDED)
+TOL_PREDICT = TOL_FB_ROUNDED["bfloat16"]
+# the least share of holdout rows whose class (argmax) the predictor and
+# the plain versions' forward agree on; the rest are near-ties that the
+# bf16 kernels' rounding may flip
+EVAL_AGREE = 0.9
+
+
+class _Stop(Exception):
+    """Raised right after a save: a run killed there."""
+
+
+def _same_tree(a, b, np) -> bool:
+    """Equal trees, leaves of one dtype and equal bits."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_same_tree(a[k], b[k], np) for k in a))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        np.array_equal(a, b))
+
+
+def _watch_saves(trainer, stop, torch, np):
+    """Wrap ``trainer._maybe_save`` as the reference's test does: time
+    each save and the card memory it takes beyond the run's, read the
+    file back against the state it holds, and stop
+    the run (``_Stop``) right after the save at the cursor ``stop``."""
+    from distkeras_tpu_torch import checkpoint, serialization
+
+    orig, saves = trainer._maybe_save, []
+
+    def saving(state, cursor):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        orig(state, cursor)
+        seconds = time.monotonic() - t0
+        # the most card memory the save took beyond what the run held
+        extra = torch.cuda.max_memory_allocated() - held
+        path = checkpoint.checkpoint_file(trainer.checkpoint_dir)
+        want = serialization.to_host(trainer._to_checkpoint(state)[0])
+        same = _same_tree(want, checkpoint.load_checkpoint(path)[0], np)
+        saves.append({"cursor": dict(cursor), "bytes": path.stat().st_size,
+                      "s": seconds, "device_extra_bytes": extra,
+                      "read_back_equal": same})
+        if not same:
+            raise SystemExit(f"checkpoint at {cursor} does not read back "
+                             f"equal to the state it saved")
+        if cursor == stop:
+            raise _Stop
+
+    trainer._maybe_save = saving
+    return saves
+
+
+def _watch_loads(trainer, torch):
+    """Time ``trainer._maybe_resume`` (read, decode, copy to the card)."""
+    from distkeras_tpu_torch import checkpoint
+
+    orig, loads = trainer._maybe_resume, []
+
+    def resume(resume_from, state):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = orig(resume_from, state)
+        torch.cuda.synchronize()
+        loads.append({"bytes": checkpoint.checkpoint_file(resume_from)
+                      .stat().st_size, "s": time.monotonic() - t0})
+        return out
+
+    trainer._maybe_resume = resume
+    return loads
+
+
+def _kill_and_resume(make, data, holdout, stop, ckpt_dir, reset, read,
+                     torch, np):
+    """The uninterrupted run (its kernels counted: ``reset`` just before,
+    ``read`` just after), a run stopped after the save at ``stop``, and a
+    resume from that save, all three from the first one's initial
+    weights; each evaluates ``holdout`` every epoch."""
+    full = make()
+    start = {k: v.clone() for k, v in full.model.state_dict().items()}
+    torch.cuda.synchronize()
+    reset()
+    full.train(data, initial_variables=start, eval_dataset=holdout)
+    torch.cuda.synchronize()
+    counts = read()
+    part = make(checkpoint_dir=str(ckpt_dir))
+    saves = _watch_saves(part, stop, torch, np)
+    try:
+        part.train(data, initial_variables=start, eval_dataset=holdout)
+        raise SystemExit(f"the run was not stopped at {stop}")
+    except _Stop:
+        pass
+    del part
+    resumed = make()
+    loads = _watch_loads(resumed, torch)
+    resumed.train(data, initial_variables=start, eval_dataset=holdout,
+                  resume_from=str(ckpt_dir))
+    torch.cuda.synchronize()
+    return full, resumed, counts, saves, loads
+
+
+def _eval_forwards(batch_size):
+    """The holdout's forwards over 2 epochs: the trainers evaluate at
+    batch ``max(batch_size, 256)``."""
+    return 2 * -(-HOLDOUT_ROWS // max(batch_size, 256))
+
+
+def _hist(trainer, keys):
+    return {k: trainer.history.get(k) for k in keys}
+
+
+def _checkpoint_phase(seed, torch, np, fb, gn):
+    """Phase 9: (a) ADAG kill-and-resume on #5-#6, (b) SingleTrainer
+    kill-and-resume on #7-#10, each with ``eval_dataset``, (c) the
+    predictor over #7 and #9 against the plain versions' forward, and
+    the evaluators, (d) the files read back.  Returns the numbers and
+    each path's launch counts (set to 0 just before the path, read just
+    after)."""
+    import shutil
+    import tempfile
+
+    from distkeras_tpu_torch import (ADAG, SingleTrainer, checkpoint,
+                                     convert, serialization, utils)
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.evaluators import (AccuracyEvaluator,
+                                                evaluate_model)
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    t_phase = time.monotonic()
+    res, counts = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        holdout = datasets.imagenet_synth(HOLDOUT_ROWS, image_size=IMAGE,
+                                          num_classes=1000, seed=seed + 1)
+        data = datasets.imagenet_synth(CKPT_FUSED_ROWS, image_size=IMAGE,
+                                       num_classes=1000, seed=seed)
+
+        # (a) ADAG, faithful, on the GroupNorm kernels
+        cfg = model_config("resnet", (IMAGE, IMAGE, 3), **RESNET)
+        ps_kw = dict(num_epoch=2, seed=seed, learning_rate=PS_LR,
+                     lr_law="scale", device="cuda",
+                     checkpoint_every_rounds=CKPT_EVERY, **CKPT_PS)
+        full, resumed, counts["ckpt_ps"], saves, loads = _kill_and_resume(
+            lambda **kw: ADAG(cfg, **ps_kw, **kw),
+            data.take(CKPT_PS_ROWS), holdout, CKPT_PS_STOP, tmp / "ps",
+            lambda: _reset_gn(gn), lambda: _gn_counts(gn), torch, np)
+        keys = ("round_loss", "epoch_loss", "dropped_tail_batches",
+                "staleness", "eval_accuracy")
+        rounds = len(full.history["round_loss"])
+        steps = (rounds * CKPT_PS["num_workers"]
+                 * CKPT_PS["communication_window"])
+        per_step = sum(_resnet_shapes(full.model, CKPT_PS["batch_size"],
+                                      torch)[0].values())
+        evals = _eval_forwards(CKPT_PS["batch_size"])
+        want = {"group_norm_fwd": per_step * (steps + evals),
+                "group_norm_bwd": per_step * steps}
+        center_equal = all(torch.equal(full.trained_variables[k],
+                                       resumed.trained_variables[k])
+                           for k in full.trained_variables)
+        w0_equal = all(torch.equal(a, resumed.worker_model_states[0][k])
+                       for k, a in full.worker_model_states[0].items())
+        hist_equal = _hist(full, keys) == _hist(resumed, keys)
+        print(f"checkpoint: ADAG norm='group_pallas' workers="
+              f"{CKPT_PS['num_workers']} rounds={rounds} round_loss="
+              f"{full.history['round_loss']} eval_accuracy="
+              f"{full.history['eval_accuracy']} launches="
+              f"{counts['ckpt_ps']} (want {want}); stopped at "
+              f"{saves[-1]['cursor']} after saves {saves}; resumed: loads "
+              f"{loads}, center bit-equal {center_equal}, worker 0's model "
+              f"state bit-equal {w0_equal}, history {keys} equal "
+              f"{hist_equal}")
+        if counts["ckpt_ps"] != want:
+            raise SystemExit("checkpoint phase: ADAG's GroupNorm launches "
+                             "off")
+        if not (center_equal and w0_equal and hist_equal):
+            raise SystemExit("the resumed ADAG run differs from the "
+                             "uninterrupted one")
+        if len(full.history["eval_accuracy"]) != 2 \
+                or not np.isfinite(full.history["round_loss"]).all():
+            raise SystemExit("ADAG: eval_accuracy not once per epoch, or "
+                             "losses not finite")
+        # a PS snapshot of the trained center, read back
+        snap = {"center": convert.params_tree(
+                    full.parameter_server_state.center),
+                "num_commits": int(full.parameter_server_state.clock),
+                "last_reply": {}, "epoch": 0}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path = checkpoint.save_ps_snapshot(tmp / "ps.snap", snap)
+        snap_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        center = checkpoint.ps_snapshot_center(path)
+        snap_load_s = time.monotonic() - t0
+        info = checkpoint.ps_snapshot_info(path)
+        snap_ok = _same_tree(serialization.to_host(snap["center"]), center,
+                             np) and info["num_commits"] == \
+            snap["num_commits"]
+        print(f"checkpoint: PS snapshot {Path(path).stat().st_size} bytes "
+              f"saved in {snap_s:.3f} s, read in {snap_load_s:.3f} s, "
+              f"center bit-equal and info {info}: {snap_ok}")
+        if not snap_ok:
+            raise SystemExit("the PS snapshot does not read back equal")
+        res["ps"] = {"rounds": rounds, "round_loss": full.history[
+                         "round_loss"],
+                     "eval_accuracy": full.history["eval_accuracy"],
+                     "launches": counts["ckpt_ps"], "saves": saves,
+                     "loads": loads, "snapshot": {
+                         "bytes": Path(path).stat().st_size, "save_s":
+                         snap_s, "load_s": snap_load_s}}
+        del full, resumed
+        shutil.rmtree(tmp / "ps", ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (b) SingleTrainer on the fused path, from one start
+        cfg = model_config("resnet", (IMAGE, IMAGE, 3), **FUSED)
+        train = {**FUSED_TRAIN, "num_epoch": 2, "seed": seed}
+        full, resumed, counts["ckpt_single"], saves, loads = \
+            _kill_and_resume(lambda **kw: SingleTrainer(cfg, **train, **kw),
+                             data, holdout, CKPT_FUSED_STOP,
+                             tmp / "single", lambda: _reset_fb(fb),
+                             lambda: _fb_counts(fb), torch, np)
+        blocks = sum(FUSED["stage_sizes"])
+        convs = blocks + len(FUSED["stage_sizes"])
+        steps = 2 * CKPT_FUSED_ROWS // FUSED_TRAIN["batch_size"]
+        fwd = steps + _eval_forwards(FUSED_TRAIN["batch_size"])
+        want = dict(zip(FB_KERNELS, (convs * fwd, convs * steps,
+                                     blocks * fwd, blocks * steps)))
+        variables = resumed.trained_variables
+        result_equal = all(torch.equal(full.trained_variables[k],
+                                       variables[k])
+                           for k in full.trained_variables)
+        keys = ("epoch_loss", "eval_accuracy")
+        hist_equal = _hist(full, keys) == _hist(resumed, keys)
+        print(f"checkpoint: SingleTrainer fused steps={steps} epoch_loss="
+              f"{full.history['epoch_loss']} eval_accuracy="
+              f"{full.history['eval_accuracy']} launches="
+              f"{counts['ckpt_single']} (want {want}); saves {saves}; "
+              f"loads {loads}; result bit-equal {result_equal}, history "
+              f"{keys} equal {hist_equal}")
+        if counts["ckpt_single"] != want:
+            raise SystemExit("checkpoint phase: the fused launches off")
+        if not (result_equal and hist_equal):
+            raise SystemExit("the resumed SingleTrainer differs from the "
+                             "uninterrupted one")
+        if len(full.history["eval_accuracy"]) != 2:
+            raise SystemExit("SingleTrainer: eval_accuracy not once per "
+                             "epoch")
+        res["single"] = {"steps": steps,
+                         "epoch_loss": full.history["epoch_loss"],
+                         "eval_accuracy": full.history["eval_accuracy"],
+                         "launches": counts["ckpt_single"],
+                         "saves": saves, "loads": loads}
+        del full, resumed
+        shutil.rmtree(tmp / "single", ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # parameters through serialize_params and back
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        blob = utils.serialize_params(variables)
+        ser_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        back = utils.deserialize_params(variables, blob)
+        torch.cuda.synchronize()
+        de_s = time.monotonic() - t0
+        params_ok = back.keys() == variables.keys() and all(
+            torch.equal(back[k], variables[k]) for k in back)
+        print(f"checkpoint: serialize_params {len(blob)} bytes in "
+              f"{ser_s:.3f} s, deserialize_params in {de_s:.3f} s, "
+              f"round trip bit-equal {params_ok}")
+        if not params_ok:
+            raise SystemExit("serialize_params/deserialize_params do not "
+                             "round-trip")
+        res["params"] = {"bytes": len(blob), "serialize_s": ser_s,
+                         "deserialize_s": de_s}
+        del back, blob
+
+        # (c) the predictor through #7 and #9, the plain versions' forward
+        # on the same model, the evaluators
+        predictor = ModelPredictor(cfg, variables,
+                                   batch_size=PREDICT_BATCH)
+        torch.cuda.synchronize()
+        _reset_fb(fb)
+        scored = predictor.predict(holdout)
+        counts["predict"] = _fb_counts(fb)
+        batches = -(-HOLDOUT_ROWS // PREDICT_BATCH)
+        want = dict(zip(FB_KERNELS, (convs * batches, 0, blocks * batches,
+                                     0)))
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            predictor.predict(holdout)
+            times.append(time.monotonic() - t0)
+        images_per_s = HOLDOUT_ROWS / float(np.median(times))
+        plain_on = fb._on
+        fb._on = lambda device, kernel, reference: reference
+        try:
+            plain = predictor.predict(holdout)["prediction"]
+        finally:
+            fb._on = plain_on
+        logits = scored["prediction"]
+        ratio = _ratio(torch.from_numpy(logits), torch.from_numpy(plain))
+        # the holdout relabelled with the plain forward's classes: a right
+        # evaluator reads near 1, one that misaligns rows or columns near
+        # 1/1000
+        labels = np.argmax(plain, axis=-1).astype(holdout["label"].dtype)
+        by_eval = evaluate_model(predictor.model, variables,
+                                 holdout.with_column("label", labels),
+                                 batch_size=PREDICT_BATCH)["accuracy"]
+        by_acc = AccuracyEvaluator().evaluate(
+            scored.with_column("label", labels))
+        by_numpy = float(np.mean(np.argmax(logits, axis=-1) == labels))
+        print(f"checkpoint: ModelPredictor {HOLDOUT_ROWS} rows at batch "
+              f"{PREDICT_BATCH}: logits {logits.shape} launches "
+              f"{counts['predict']} (want {want}); against the plain "
+              f"versions' forward: max ratio {ratio:.4g} (tolerance "
+              f"{TOL_PREDICT}); images_per_s {images_per_s:.1f} (median "
+              f"of {len(times)} calls, {times}); on the plain forward's "
+              f"classes: evaluate_model accuracy {by_eval} "
+              f"AccuracyEvaluator {by_acc} numpy argmax {by_numpy}")
+        if counts["predict"] != want or logits.shape != (HOLDOUT_ROWS, 1000):
+            raise SystemExit("the predictor's launches or shape off")
+        if not (np.isfinite(logits).all() and ratio <= TOL_PREDICT):
+            raise SystemExit("the predictor's logits disagree with the "
+                             "plain versions' forward")
+        if by_eval != by_acc or abs(by_acc - by_numpy) > 1e-6 \
+                or by_acc < EVAL_AGREE:
+            raise SystemExit("evaluate_model, AccuracyEvaluator and the "
+                             "numpy argmax differ, or the fused and plain "
+                             "forwards' classes disagree")
+        res["predict"] = {"rows": HOLDOUT_ROWS, "batch": PREDICT_BATCH,
+                          "launches": counts["predict"],
+                          "max_ratio": ratio, "images_per_s": images_per_s,
+                          "call_s": times,
+                          "accuracy_on_plain_classes": by_eval}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"checkpoint: phase took {res['phase_s']:.1f} s")
+    return res, counts
+
+
 def _gn_summary(timing, mix, pre):
     """The ``kernels`` line's fields of a GroupNorm kernel: times
     launch-weighted over the path's (shape, ReLU) mix, the two-pass
@@ -3214,7 +3599,11 @@ def main() -> int:
     family, family_counts, family_routes = _trainer_family(
         args.seed, torch, np, fb, gn)
 
-    # ---- 9. kernel table ---------------------------------------------
+    # ---- 9. checkpoints, kill-and-resume, evaluation, prediction -------
+    ckpt, ckpt_counts = _checkpoint_phase(args.seed, torch, np, fb, gn)
+    torch.cuda.empty_cache()
+
+    # ---- 10. kernel table --------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts), and over each
     # path's own: the serving prefills and the training shape; the
@@ -3270,7 +3659,8 @@ def main() -> int:
     # path's (shape, ReLU) mix
     gn_paths = {"ps_train": ps_counts,
                 "averaging_train": family_counts["averaging_train"],
-                "ensemble_train": family_counts["ensemble_train"]}
+                "ensemble_train": family_counts["ensemble_train"],
+                "ckpt_ps": ckpt_counts["ckpt_ps"]}
     gn_routes = {"ps_train": ps["group_norm_routes"], **family_routes}
     for name, pre, out, line in (("group_norm_fwd", "fwd", "y", 56),
                                  ("group_norm_bwd", "bwd", "dx", 83)):
@@ -3309,15 +3699,16 @@ def main() -> int:
         by_ops = sum(n for k, n in mix.items()
                      if fb_timing[(kind, k)][f"{pre}_bound_by"]
                      == "operations")
+        fb_paths = {"fused_train": fb_counts,
+                    "sync_train": family_counts["sync_train"],
+                    "ckpt_single": ckpt_counts["ckpt_single"],
+                    "predict": ckpt_counts["predict"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "distkeras_tpu_torch/csrc/fused_block.cu",
             "replaces": f"distkeras_tpu/ops/fused_block.py:{line}",
-            "launches": fb_counts[name]
-            + family_counts["sync_train"][name],
-            "launches_by_path": {
-                "fused_train": fb_counts[name],
-                "sync_train": family_counts["sync_train"][name]},
+            "launches": sum(c[name] for c in fb_paths.values()),
+            "launches_by_path": {p: c[name] for p, c in fb_paths.items()},
             "max_abs_err": max(r[f"{o}_err"] for r in fb_rows for o in outs
                                if r["dtype"] == "bfloat16"
                                and r["kernel"] == name.rsplit("_", 1)[0]),
@@ -3393,7 +3784,7 @@ def main() -> int:
             "hop_timing": [{"kernel": k[0], "hop": k[1], **v}
                            for k, v in hop_timing.items()],
             "seq_train": seq, "trainer_family": family,
-            "kernels": kernels}, indent=1))
+            "checkpoint": ckpt, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,11 @@ On an NVIDIA H100: ``SingleTrainer`` and ``SyncTrainer`` train
 serves the LM, the parameter-server family (``DOWNPOUR``, ``ADAG``,
 ``DynSGD``, ``AEASGD``, ``EAMSGD``) trains through the emulated commit
 rounds, and ``EnsembleTrainer``/``AveragingTrainer`` train members on
-disjoint shards.  Attention, GroupNorm and the fused ResNet bottleneck
-run hand-written CUDA kernels, forward and backward
+disjoint shards.  The trainers checkpoint and resume in the JAX
+package's file format (``checkpoint.py``), either package reading the
+other's files, and ``predictors.ModelPredictor`` and ``evaluators``
+score a ``Dataset``.  Attention, GroupNorm and the fused ResNet
+bottleneck run hand-written CUDA kernels, forward and backward
 (``ops/attention.py``, ``ops/group_norm.py``, ``ops/fused_block.py``,
 ``csrc/``).  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``, and raise when no card is present.

@@ -45,8 +45,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from distkeras_tpu_torch import serialization
+
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
     return torch.tensor(np.asarray(x))
 
 
@@ -125,21 +129,22 @@ def variables_from_flax(variables: Mapping) -> dict:
             **_flat_from_flax(variables.get("batch_stats", {}))}
 
 
-def _is_batch_stat(name: str) -> bool:
+def is_batch_stat(name: str) -> bool:
     """A BatchNorm running statistic (``..BatchNorm_0.mean``/``.var``)."""
     *path, leaf = name.split(".")
     return leaf in ("mean", "var") and bool(path) \
         and path[-1].startswith("BatchNorm_")
 
 
-def _np(x) -> np.ndarray:
-    return torch.as_tensor(x).detach().float().cpu().numpy()
+def _f32(x) -> torch.Tensor:
+    """An f32 tensor where ``x`` lives (the value itself if it is one)."""
+    return torch.as_tensor(x).detach().float()
 
 
 def _dense_to_flax(sd: Mapping, prefix: str, heads: int | None = None
                    ) -> dict:
-    kernel = _np(sd[f"{prefix}.weight"]).T                    # [in, out]
-    bias = _np(sd[f"{prefix}.bias"])
+    kernel = _f32(sd[f"{prefix}.weight"]).T                   # [in, out]
+    bias = _f32(sd[f"{prefix}.bias"])
     if heads is not None:
         kernel = kernel.reshape(kernel.shape[0], heads, -1)
         bias = bias.reshape(heads, -1)
@@ -147,22 +152,55 @@ def _dense_to_flax(sd: Mapping, prefix: str, heads: int | None = None
 
 
 def _layer_norm_to_flax(sd: Mapping, prefix: str) -> dict:
-    return {"scale": _np(sd[f"{prefix}.scale"]),
-            "bias": _np(sd[f"{prefix}.bias"])}
+    return {"scale": _f32(sd[f"{prefix}.scale"]),
+            "bias": _f32(sd[f"{prefix}.bias"])}
 
 
 def _flat_to_flax(state_dict: Mapping) -> dict:
     tree: dict = {}
     for name, value in state_dict.items():
-        *path, leaf = name.split(".")
+        *path, key = name.split(".")
         node = tree
-        for key in path:
-            node = node.setdefault(key, {})
-        x = _np(value)
-        if leaf == "weight":
-            leaf = "kernel"
-            x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
-        node[leaf] = np.ascontiguousarray(x)
+        for part in path:
+            node = node.setdefault(part, {})
+        x = _f32(value)
+        if key == "weight":
+            key = "kernel"
+            x = x.permute(*((2, 3, 1, 0) if x.ndim == 4 else (1, 0)))
+        node[key] = x
+    return tree
+
+
+def _params(sd: Mapping, num_heads: int | None) -> dict:
+    """The flax ``params`` tree of ``sd``, its leaves f32 tensors where
+    the values live (views of them where the layouts allow)."""
+    if "embed.weight" not in sd:
+        return _flat_to_flax({k: v for k, v in sd.items()
+                              if not is_batch_stat(k)})
+    if num_heads is None:
+        raise ValueError("a TransformerLM state_dict needs num_heads")
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    d = sd["embed.weight"].shape[1]
+    hd = d // num_heads
+    tree = {"Embed_0": {"embedding": _f32(sd["embed.weight"])},
+            "pos_embed": {"embedding": _f32(sd["pos_embed.weight"])},
+            "LayerNorm_0": _layer_norm_to_flax(sd, "ln_f"),
+            "lm_head": _dense_to_flax(sd, "lm_head")}
+    for i in range(n_blocks):
+        pre = f"blocks.{i}"
+        kvh = sd[f"{pre}.attn.key.weight"].shape[0] // hd
+        att = {name: _dense_to_flax(sd, f"{pre}.attn.{name}", heads)
+               for name, heads in (("query", num_heads), ("key", kvh),
+                                   ("value", kvh))}
+        out = _f32(sd[f"{pre}.attn.out.weight"]).T            # [H*hd, d]
+        att["out"] = {"kernel": out.reshape(num_heads, hd, -1),
+                      "bias": _f32(sd[f"{pre}.attn.out.bias"])}
+        tree[f"Block_{i}"] = {
+            "LayerNorm_0": _layer_norm_to_flax(sd, f"{pre}.ln1"),
+            "LayerNorm_1": _layer_norm_to_flax(sd, f"{pre}.ln2"),
+            "SelfAttention_0": att,
+            "Dense_0": _dense_to_flax(sd, f"{pre}.mlp_in"),
+            "Dense_1": _dense_to_flax(sd, f"{pre}.mlp_out")}
     return tree
 
 
@@ -174,43 +212,132 @@ def params_to_flax(state_dict: Mapping, num_heads: int | None = None
     the fused projections into flax's ``[d, H, head_dim]`` kernels (the
     K/V head count follows from the key projection's width); the MLP,
     ConvNet and ResNet need no more than their ``state_dict``."""
-    sd = state_dict
-    if "embed.weight" not in sd:
-        return _flat_to_flax({k: v for k, v in sd.items()
-                              if not _is_batch_stat(k)})
-    if num_heads is None:
-        raise ValueError("a TransformerLM state_dict needs num_heads")
-    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
-    d = sd["embed.weight"].shape[1]
-    hd = d // num_heads
-    tree = {"Embed_0": {"embedding": _np(sd["embed.weight"])},
-            "pos_embed": {"embedding": _np(sd["pos_embed.weight"])},
-            "LayerNorm_0": _layer_norm_to_flax(sd, "ln_f"),
-            "lm_head": _dense_to_flax(sd, "lm_head")}
-    for i in range(n_blocks):
-        pre = f"blocks.{i}"
-        kvh = sd[f"{pre}.attn.key.weight"].shape[0] // hd
-        att = {name: _dense_to_flax(sd, f"{pre}.attn.{name}", heads)
-               for name, heads in (("query", num_heads), ("key", kvh),
-                                   ("value", kvh))}
-        out = _np(sd[f"{pre}.attn.out.weight"]).T              # [H*hd, d]
-        att["out"] = {"kernel": out.reshape(num_heads, hd, -1),
-                      "bias": _np(sd[f"{pre}.attn.out.bias"])}
-        tree[f"Block_{i}"] = {
-            "LayerNorm_0": _layer_norm_to_flax(sd, f"{pre}.ln1"),
-            "LayerNorm_1": _layer_norm_to_flax(sd, f"{pre}.ln2"),
-            "SelfAttention_0": att,
-            "Dense_0": _dense_to_flax(sd, f"{pre}.mlp_in"),
-            "Dense_1": _dense_to_flax(sd, f"{pre}.mlp_out")}
-    return tree
+    return serialization.to_host(_params(state_dict, num_heads))
 
 
 def variables_to_flax(state_dict: Mapping) -> dict:
     """The port's MLP, ConvNet or ResNet ``state_dict`` -> flax variables
     ``{"params": ...}``, plus ``"batch_stats"`` where it holds BatchNorm
     statistics: the reverse of ``variables_from_flax``."""
-    out = {"params": params_to_flax(state_dict)}
-    stats = {k: v for k, v in state_dict.items() if _is_batch_stat(k)}
+    out = {"params": _params(state_dict, None)}
+    stats = {k: v for k, v in state_dict.items() if is_batch_stat(k)}
     if stats:
         out["batch_stats"] = _flat_to_flax(stats)
-    return out
+    return serialization.to_host(out)
+
+
+# -- training states --------------------------------------------------------
+#
+# The JAX package checkpoints its ``TrainState`` (``distkeras_tpu/
+# workers.py``) as the state dict ``{"step", "params", "opt_state",
+# "model_state", "rng"}``: ``step`` an int32 scalar, ``params`` the flax
+# tree, ``opt_state`` optax's chain (``{"0": .., "1": ..}``, each
+# transformation's named fields over trees of the params' layout: the
+# port's ``Optimizer.chain``), ``model_state`` ``{"batch_stats": ..}`` or
+# ``{}``, ``rng`` a threefry key as its raw ``uint32[2]`` data.  Dicts
+# are in key order, as ``jax.device_get`` leaves them.  The PS trainers
+# stack their workers' states on a leading axis.
+#
+# Key leaves: the port's streams are ``torch.Generator``s, whose state
+# no threefry key can hold.  The port writes into a key leaf the 64-bit
+# seed of the stream it stands for, high word first: the data that
+# ``jax.random.key(seed)`` holds, so the JAX package can wrap it, and
+# the port can seed a stream from a JAX key the same way
+# (``stream_from_key``).  The streams' exact positions ride beside the
+# state, in the port's own entry of the checkpoint (``checkpoint.py``).
+
+
+def seed_key(seed: int) -> np.ndarray:
+    """The key leaf of a stream seeded with ``seed``: ``uint32[2]``
+    (high word, low word), ``jax.random.key(seed)``'s data."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    np.uint32)
+
+
+def stream_key(gen: torch.Generator | None) -> np.ndarray:
+    """The key leaf of a stream (zeros for a state without one)."""
+    return seed_key(0 if gen is None else gen.initial_seed())
+
+
+def stream_from_key(key, device=None) -> torch.Generator:
+    """A stream seeded from a key leaf's two words."""
+    hi, lo = (int(w) for w in np.asarray(key, np.uint32).reshape(-1)[-2:])
+    return torch.Generator(device=device).manual_seed((hi << 32) | lo)
+
+
+def params_tree(state_dict: Mapping, num_heads: int | None = None) -> dict:
+    """``params_to_flax`` as a JAX tree holds it (dicts in key order),
+    its leaves f32 tensors where the values live, for the writers:
+    ``serialization.to_host`` copies them to the host all at once."""
+    return serialization.sort_keys(_params(state_dict, num_heads))
+
+
+def train_state_to_flax(state, chain: tuple,
+                        num_heads: int | None = None) -> dict:
+    """The port's ``TrainState`` -> the JAX ``TrainState``'s state dict.
+    ``chain``: the optimizer's optax layout (``Optimizer.chain``).
+    Tensor leaves stay where they are, as f32 (views where the layouts
+    allow)."""
+    if not chain:
+        raise ValueError("the optimizer has no optax layout (chain); "
+                         "only the named optimizers checkpoint")
+
+    count = np.asarray(state.opt_state["count"], np.int32)
+    opt = {str(i): {slot: count if slot == "count"
+                    else params_tree(state.opt_state[slot], num_heads)
+                    for slot in slots}
+           for i, slots in enumerate(chain)}
+    stats = {k: v for k, v in state.model_state.items()
+             if is_batch_stat(k)}
+    return {"step": np.asarray(state.step, np.int32),
+            "params": params_tree(state.params, num_heads),
+            "opt_state": opt,
+            "model_state": ({"batch_stats": serialization.sort_keys(
+                _flat_to_flax(stats))} if stats else {}),
+            "rng": stream_key(state.rng)}
+
+
+def _copy_into(dst: Mapping, src: Mapping) -> None:
+    with torch.no_grad():
+        for name, t in dst.items():
+            t.copy_(_t(src[name]))
+
+
+def train_state_from_flax(tree: Mapping, state, chain: tuple) -> None:
+    """Fill the port's ``state`` (built for the same model and
+    optimizer) IN PLACE from a JAX ``TrainState`` state dict, the
+    reverse of ``train_state_to_flax``.  The stream is left alone (see
+    ``stream_from_key``)."""
+    _copy_into(state.params, params_from_flax(tree["params"]))
+    counts = []
+    for i, slots in enumerate(chain):
+        node = tree["opt_state"][str(i)]
+        for slot in slots:
+            if slot == "count":
+                counts.append(int(np.asarray(node["count"])))
+            else:
+                _copy_into(state.opt_state[slot],
+                           params_from_flax(node[slot]))
+    if counts:
+        state.opt_state["count"] = counts[0]
+    stats = tree["model_state"].get("batch_stats", {})
+    if stats:
+        _copy_into({k: v for k, v in state.model_state.items()
+                    if is_batch_stat(k)}, _flat_from_flax(stats))
+    state.step = int(np.asarray(tree["step"]))
+
+
+def stack_trees(trees: list):
+    """Leafwise stack of equal host trees (numpy leaves) on a new leading
+    axis, the JAX PS trainers' worker axis."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def index_tree(tree, i: int):
+    """Row ``i`` of every leaf: one worker of a stacked tree."""
+    if isinstance(tree, Mapping):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    return tree[i]

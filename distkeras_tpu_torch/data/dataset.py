@@ -6,8 +6,10 @@ aligned on the row axis, and ``shuffle`` draws the same permutation from
 the same seed, so a trainer of either package sees its batches in the
 same order.  ``shard``/``repartition`` split the rows as the JAX
 package does, so a PS trainer of either package gives each worker the
-same rows.  The CSV and npz readers and the sharded (out-of-core) sets
-are not ported yet (queue 3b in ROADMAP.md).
+same rows.  The in-memory verbs (``drop``, ``rename``, ``filter``,
+``train_test_split``, ``concat``) are the reference's.  The CSV and npz
+readers and the sharded (out-of-core) sets are not ported yet
+(ROADMAP.md §1 item 5).
 """
 
 from __future__ import annotations
@@ -65,6 +67,18 @@ class Dataset:
         cols[name] = np.asarray(values)
         return Dataset(cols)
 
+    def drop(self, *names: str) -> "Dataset":
+        return Dataset(
+            {k: v for k, v in self._columns.items() if k not in names})
+
+    def rename(self, mapping: Mapping[str, str]) -> "Dataset":
+        return Dataset(
+            {mapping.get(k, k): v for k, v in self._columns.items()})
+
+    def filter(self, mask: np.ndarray) -> "Dataset":
+        mask = np.asarray(mask, dtype=bool)
+        return Dataset({k: v[mask] for k, v in self._columns.items()})
+
     def map_column(self, name: str,
                    fn: Callable[[np.ndarray], np.ndarray],
                    out: str | None = None) -> "Dataset":
@@ -76,6 +90,29 @@ class Dataset:
     def shuffle(self, seed: int = 0) -> "Dataset":
         perm = np.random.default_rng(seed).permutation(self._num_rows)
         return Dataset({k: v[perm] for k, v in self._columns.items()})
+
+    def train_test_split(self, test_fraction: float = 0.2,
+                         seed: int = 0) -> tuple["Dataset", "Dataset"]:
+        """Shuffled ``(train, test)`` split, the JAX package's rows for
+        the same seed.  Both parts are non-empty or this raises."""
+        if not 0.0 < test_fraction < 1.0:
+            raise ValueError(
+                f"test_fraction must be in (0, 1), got {test_fraction}")
+        n_test = int(round(self._num_rows * test_fraction))
+        if n_test == 0 or n_test == self._num_rows:
+            raise ValueError(
+                f"split of {self._num_rows} rows at {test_fraction} "
+                f"leaves an empty part")
+        perm = np.random.default_rng(seed).permutation(self._num_rows)
+        cols = self._columns
+        return (Dataset({k: v[perm[n_test:]] for k, v in cols.items()}),
+                Dataset({k: v[perm[:n_test]] for k, v in cols.items()}))
+
+    def concat(self, other: "Dataset") -> "Dataset":
+        if set(self.column_names) != set(other.column_names):
+            raise ValueError("column sets differ")
+        return Dataset({k: np.concatenate([v, other[k]])
+                        for k, v in self._columns.items()})
 
     # -- partitioning (the Spark repartition analogue) --------------------
 

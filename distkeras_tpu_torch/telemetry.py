@@ -23,6 +23,10 @@ class Series:
         with self._lock:
             self._values.append(v)
 
+    def replace(self, vs) -> None:
+        with self._lock:
+            self._values = list(vs)
+
     def values(self) -> list:
         with self._lock:
             return list(self._values)
@@ -51,7 +55,8 @@ class MetricsRegistry:
 class HistoryView(collections.abc.Mapping):
     """Trainer ``history`` as a read view over a registry's series:
     ``view[key]`` is a list copy of the values; the Mapping ABC supplies
-    ``get``/``in``/``keys``/``items``."""
+    ``get``/``in``/``keys``/``items``.  Writers go through the registry
+    (``Trainer._record``); ``replace`` resets it from a checkpoint."""
 
     __slots__ = ("_registry",)
 
@@ -72,3 +77,13 @@ class HistoryView(collections.abc.Mapping):
 
     def __repr__(self) -> str:
         return f"HistoryView({dict(self)!r})"
+
+    def replace(self, mapping) -> None:
+        """Reset the backing series to ``mapping`` (checkpoint resume).
+        Series absent from ``mapping`` are emptied, so the view equals
+        the checkpointed history exactly."""
+        for name, s in self._registry._nonempty().items():
+            if name not in mapping:
+                s.replace([])
+        for k, v in mapping.items():
+            self._registry.series(k).replace(list(v))

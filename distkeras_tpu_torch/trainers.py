@@ -28,20 +28,31 @@ Every training state carries its own random stream (``TrainState.rng``,
 dropout's masks), seeded as the reference keys its states: ``seed + 1``
 for Single and Sync, one stream per PS worker and per member split from
 it.  Its model state (BatchNorm's running statistics) stays its own:
-the PS rules exchange parameters only.  The host and mesh tiers,
-SyncTrainer's tensor and pipeline parallelism, checkpoints, per-epoch
-evaluation and profiling are not ported yet: see ROADMAP.md §1.
+the PS rules exchange parameters only.
+
+``checkpoint_dir`` saves the training state at every epoch boundary
+(and, for the PS family, every ``checkpoint_every_rounds`` rounds) in
+the JAX package's file format (``checkpoint.py``), and
+``train(resume_from=...)`` continues a killed run from such a file: the
+resumed run repeats the uninterrupted one bit for bit, since every
+random source (the shuffles, the commit orders, each state's stream) is
+keyed by saved state.  ``train(eval_dataset=...)`` records
+``history["eval_accuracy"]`` once per epoch.  The host and mesh tiers,
+SyncTrainer's tensor and pipeline parallelism and profiling are not
+ported yet: see ROADMAP.md §1.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import ClassVar, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch import (checkpoint, convert, serialization,
+                                 telemetry)
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models.core import ModelSpec
@@ -115,10 +126,10 @@ class Trainer:
                  profile_dir: str | None = None, device=None):
         """``learning_rate``: float, schedule, or a JSON-friendly
         ``{"schedule": name, **kwargs}`` dict (see
-        ``workers.resolve_schedule``).  ``device``: where the model
-        trains (default ``cuda``)."""
-        if checkpoint_dir is not None:
-            raise _unsupported("checkpoint_dir", 3)
+        ``workers.resolve_schedule``).  ``checkpoint_dir``: where the
+        epoch-boundary checkpoints go (a directory, or an explicit
+        ``.msgpack`` file).  ``device``: where the model trains (default
+        ``cuda``)."""
         if profile_dir is not None:
             raise _unsupported("profile_dir", 8)
         self.device = resolve_device(device)
@@ -133,6 +144,7 @@ class Trainer:
         self.features_col = features_col
         self.batch_size = int(batch_size)
         self.num_epoch = int(num_epoch)
+        self.checkpoint_dir = checkpoint_dir
         self.training_time: float = 0.0
         # ``history`` is a read view over this trainer's own registry
         self.metrics = telemetry.MetricsRegistry()
@@ -174,26 +186,123 @@ class Trainer:
               resume_from: str | None = None,
               eval_dataset: Dataset | None = None) -> dict:
         """Train on ``dataset``; returns the trained ``state_dict`` (f32
-        parameters), which is also loaded into ``self.model``."""
-        if resume_from is not None:
-            raise _unsupported("resume_from", 3)
-        if eval_dataset is not None:
-            raise _unsupported("eval_dataset", 3)
+        parameters), which is also loaded into ``self.model``.
+        ``resume_from`` continues from a checkpoint written with
+        ``checkpoint_dir`` set (same configuration and dataset: the
+        same result as the uninterrupted run); a JAX-written checkpoint
+        of the same model and optimizer restores too.  ``eval_dataset``
+        records ``history["eval_accuracy"]`` at every epoch's end."""
+        self._eval_dataset = eval_dataset
+        self._eval_predictor = None
         start = time.time()
         try:
-            return self._train(dataset, initial_variables)
+            return self._train(dataset, initial_variables, resume_from)
         finally:
             self.training_time = time.time() - start
 
-    def _train(self, dataset, initial_variables):
+    def _train(self, dataset, initial_variables, resume_from=None):
         raise NotImplementedError
+
+    def _eval_epoch(self, variables) -> None:
+        """Epoch-boundary hook: accuracy on ``eval_dataset`` when set,
+        through one ``ModelPredictor`` (batch ``max(batch_size, 256)``)
+        kept across epochs; only its variables change."""
+        if self._eval_dataset is None:
+            return
+        from distkeras_tpu_torch.evaluators import metrics_from_logits
+        from distkeras_tpu_torch.predictors import ModelPredictor
+
+        if self._eval_predictor is None:
+            self._eval_predictor = ModelPredictor(
+                self.model, variables, features_col=self.features_col,
+                output="logits", batch_size=max(self.batch_size, 256))
+        else:
+            self._eval_predictor.variables = variables
+        scored = self._eval_predictor.predict(self._eval_dataset)
+        m = metrics_from_logits(scored["prediction"],
+                                self._eval_dataset[self.label_col])
+        self._record(eval_accuracy=m["accuracy"])
+
+    # -- checkpoint plumbing ----------------------------------------------
+
+    def _num_heads(self) -> int | None:
+        """The LM's head count, which its flax layout needs."""
+        return self.spec.kwargs.get("num_heads")
+
+    def _maybe_save(self, state, cursor: dict) -> None:
+        """Write ``state`` (the trainer's live state, see
+        ``_to_checkpoint``) with ``cursor`` and the full history, when
+        ``checkpoint_dir`` is set."""
+        if self.checkpoint_dir is None:
+            return
+        tree, streams = self._to_checkpoint(state)
+        # the cursor is JSON: materialize the registry view
+        checkpoint.save_checkpoint(
+            self.checkpoint_dir, tree,
+            {**cursor, "history": dict(self.history)}, streams)
+        if checkpoint.has_sharded(self.checkpoint_dir):
+            # one layout per directory: a stale sharded checkpoint would
+            # shadow this newer file at the next resume
+            import shutil
+
+            shutil.rmtree(Path(self.checkpoint_dir) / checkpoint.SHARDED,
+                          ignore_errors=True)
+
+    def _restore_history(self, cursor: dict) -> dict:
+        """Pop the checkpointed history into the registry-backed view
+        (the view object stays; its backing series are reset)."""
+        self.history.replace({
+            k: list(v) for k, v in cursor.pop("history", {}).items()})
+        return cursor
+
+    def _maybe_resume(self, resume_from, state):
+        """``(state, cursor)``: ``state`` restored from ``resume_from``,
+        or as given with an empty cursor when not resuming."""
+        if resume_from is None:
+            return state, {}
+        if checkpoint.has_sharded(resume_from):
+            raise _unsupported(
+                f"resuming from the sharded (orbax) checkpoint in "
+                f"{resume_from!r}", _MESH_TIER)
+        tree, cursor, streams = checkpoint.load_checkpoint(
+            resume_from, streams=True)
+        cursor = self._restore_history(cursor)
+        return self._from_checkpoint(state, tree, streams), cursor
+
+    def _to_checkpoint(self, state) -> tuple[dict, dict]:
+        """``(state dict in the JAX layout, the port's stream entry)``
+        of one ``TrainState``."""
+        tree = convert.train_state_to_flax(state, self._tx().chain,
+                                           self._num_heads())
+        return tree, {"rng": _stream_state(state.rng)}
+
+    def _from_checkpoint(self, state, tree, streams):
+        convert.train_state_from_flax(tree, state, self._tx().chain)
+        _restore_stream(state, None if streams is None else streams["rng"],
+                        tree["rng"])
+        return state
+
+
+def _stream_state(gen: torch.Generator | None):
+    return None if gen is None else gen.get_state().numpy()
+
+
+def _restore_stream(state: TrainState, saved, key) -> None:
+    """The stream's exact state where the file has it (a port-written
+    file), else a stream seeded from the key leaf (a JAX-written one)."""
+    if saved is not None:
+        state.rng.set_state(torch.from_numpy(np.array(saved, np.uint8)))
+    elif state.rng is not None:
+        state.rng = convert.stream_from_key(key, state.rng.device)
 
 
 class SingleTrainer(Trainer):
     """Sequential baseline: one worker, whole dataset (reference
     ``SingleTrainer``).  Steps run from a Python loop over chunks of
     ``SCAN_CHUNK`` batches; each chunk's metrics come to the host once,
-    not every step.  The state's stream is seeded with ``seed + 1``."""
+    not every step.  The state's stream is seeded with ``seed + 1``.
+    Checkpoints at every epoch's end; a resume starts at the cursor's
+    epoch (``step_metrics`` then holds the resumed epochs' steps)."""
 
     SCAN_CHUNK = 64  # batches per chunk (host fetch granularity)
 
@@ -201,19 +310,20 @@ class SingleTrainer(Trainer):
         """Rows per step."""
         return self.batch_size
 
-    def _train(self, dataset, initial_variables):
+    def _train(self, dataset, initial_variables, resume_from=None):
         tx = self._tx()
         state = TrainState.create(self.model,
                                   self._init_variables(initial_variables),
                                   tx, device=self.device,
                                   rng=rng_stream(self.seed + 1,
                                                  device=self.device))
+        state, cursor = self._maybe_resume(resume_from, state)
         global_batch = self._global_batch()
         step = make_train_step(self.model, self.loss, tx,
                                self.features_col, self.label_col)
         run_chunk = make_window_runner(step)
         fetched = []
-        for epoch in range(self.num_epoch):
+        for epoch in range(int(cursor.get("epoch", 0)), self.num_epoch):
             losses = []
             for segment in _epoch_segments(dataset, self.seed + epoch):
                 stacked = _stack_batches(segment, global_batch,
@@ -237,6 +347,8 @@ class SingleTrainer(Trainer):
             # in memory, the segments never keep the step waiting
             self._record(epoch_loss=float(np.concatenate(losses).mean()),
                          segment_stall_s=0.0)
+            self._eval_epoch(state.variables())
+            self._maybe_save(state, {"epoch": epoch + 1})
         self.step_metrics = {k: np.concatenate([m[k] for m in fetched])
                              for k in (fetched[0] if fetched else ())}
         self.trained_variables = state.variables()
@@ -321,7 +433,6 @@ _UNPORTED_KWARGS = {
     "metrics_every": (1, _MESH_TIER),
     "attrib_every": (0, _MESH_TIER),
     "tp_rules": (None, 9),
-    "checkpoint_every_rounds": (None, 3),
 }
 
 
@@ -346,7 +457,18 @@ class DistributedTrainer(Trainer):
     ``round_loss``, ``staleness`` (per round, each worker's commit
     position), ``dropped_tail_batches``, ``epoch_loss``,
     ``segment_stall_s``.  ``epoch_time_s``: each epoch's wall seconds,
-    from its shuffle to its last round's metrics on the host."""
+    from its shuffle to its last round's metrics on the host.
+
+    With ``checkpoint_dir``, the state is saved at every epoch's end and,
+    with ``checkpoint_every_rounds=r``, after every r-th round inside an
+    epoch (a save due at an epoch's last round is the epoch-end save).
+    The file holds the center, the commit clock and every worker's state
+    on a leading worker axis; the port's entry adds each worker's stream
+    and the number of commit orders drawn, so a resume skips that many
+    draws of ``commit_orders()`` (a replaced sequence resumes too).  A
+    mid-epoch resume skips the epoch's done rounds and takes their losses
+    from the restored history.  ``commit_overlap`` cannot checkpoint: its
+    center is always one round behind."""
 
     #: effective per-round lr (configured lr x family amplification)
     #: above which the staleness families measurably degrade on the JAX
@@ -357,15 +479,17 @@ class DistributedTrainer(Trainer):
                  communication_window: int = 5,
                  fidelity: str = "faithful", model_parallel: int = 1,
                  lr_law: str = "warn", commit_overlap: bool = False,
-                 **kwargs):
+                 checkpoint_every_rounds: int | None = None, **kwargs):
         for key, (default, item) in _UNPORTED_KWARGS.items():
             if key in kwargs and kwargs.pop(key) != default:
                 raise _unsupported(key, item)
         super().__init__(model, **kwargs)
         self.num_workers = int(num_workers)
         self.communication_window = int(communication_window)
+        self.checkpoint_every_rounds = checkpoint_every_rounds
         self.tier = resolve_tier(fidelity)
         self.fidelity = fidelity
+        self._check_checkpoint_tier(self.checkpoint_dir)
         if self.tier.data_plane != "emulated":
             raise _unsupported(
                 f"fidelity={fidelity!r}",
@@ -385,6 +509,13 @@ class DistributedTrainer(Trainer):
                 "— the fast arm's closed form has none, got "
                 f"fidelity={fidelity!r}; overlap-capable tiers: "
                 f"{tiers_with('commit_overlap')}")
+        if self.commit_overlap and (checkpoint_every_rounds
+                                    or self.checkpoint_dir):
+            raise ValueError(
+                "commit_overlap runs one commit round behind — "
+                "mid-training checkpoints would snapshot a center "
+                "missing the pending round; train without "
+                "checkpointing or without commit_overlap")
         if lr_law not in ("warn", "scale", "off"):
             raise ValueError(
                 f"lr_law={lr_law!r} must be 'warn' (default: warn "
@@ -396,6 +527,21 @@ class DistributedTrainer(Trainer):
         self.parameter_server_state = None
         self.worker_model_states: list[dict] = []
         self.epoch_time_s: list[float] = []
+
+    def _check_checkpoint_tier(self, wanted) -> None:
+        """The reference's guard: a tier that cannot checkpoint refuses
+        ``checkpoint_dir`` and ``resume_from``."""
+        if self.tier.checkpoint or not wanted:
+            return
+        if self.tier.name == "host":
+            raise NotImplementedError(
+                "fidelity='host' is the nondeterministic faithful arm; "
+                "checkpoint/resume of racing threads is not supported — "
+                "use the emulated fidelities")
+        raise NotImplementedError(
+            f"fidelity={self.tier.name!r} does not checkpoint its "
+            f"sharded-center layout; checkpointing tiers: "
+            f"{tiers_with('checkpoint')}")
 
     def commit_orders(self):
         """The rounds' commit orders, one per round across all epochs,
@@ -442,7 +588,45 @@ class DistributedTrainer(Trainer):
     def allocate_rule(self) -> UpdateRule:
         raise NotImplementedError
 
-    def _train(self, dataset, initial_variables):
+    def _to_checkpoint(self, state) -> tuple[dict, dict]:
+        """``state``: ``{"ps", "workers", "orders"}``, the PS state, the
+        workers' ``TrainState``s and the commit orders drawn.  The
+        file's ``perm_key`` holds the commit-order stream's seed.  The
+        tree comes to the host in one copy, and the workers are stacked
+        there, so a save takes no memory on the card."""
+        chain, heads = self._tx().chain, self._num_heads()
+        ps_state, workers = state["ps"], state["workers"]
+        tree = serialization.to_host({
+            "perm_key": convert.seed_key(self.seed + 2),
+            "ps": {"center": convert.params_tree(ps_state.center, heads),
+                   "clock": np.asarray(int(ps_state.clock), np.int32)},
+            "workers": [convert.train_state_to_flax(w, chain, heads)
+                        for w in workers]})
+        tree["workers"] = convert.stack_trees(tree["workers"])
+        return tree, {"rng": [_stream_state(w.rng) for w in workers],
+                      "commit_orders": state["orders"]}
+
+    def _from_checkpoint(self, state, tree, streams):
+        chain = self._tx().chain
+        ps_state = state["ps"]
+        with torch.no_grad():
+            for n, v in convert.params_from_flax(
+                    tree["ps"]["center"]).items():
+                ps_state.center[n].copy_(v)
+        workers = tree["workers"]
+        for w, ws in enumerate(state["workers"]):
+            one = convert.index_tree(workers, w)
+            convert.train_state_from_flax(one, ws, chain)
+            _restore_stream(ws, None if streams is None
+                            else streams["rng"][str(w)], one["rng"])
+        # a JAX-written file: one order was drawn per recorded round
+        orders = (streams["commit_orders"] if streams is not None
+                  else len(self.history.get("round_loss", [])))
+        return {"ps": ps_state._replace(clock=int(tree["ps"]["clock"])),
+                "workers": state["workers"], "orders": int(orders)}
+
+    def _train(self, dataset, initial_variables, resume_from=None):
+        self._check_checkpoint_tier(resume_from)
         rule = self.allocate_rule()
         tx = self._tx()
         variables = self._init_variables(initial_variables)
@@ -463,15 +647,27 @@ class DistributedTrainer(Trainer):
             round_fn = ps_emulator.make_pipelined_round_fn(rule, step)
         else:
             round_fn = ps_emulator.make_round_fn(rule, step, self.fidelity)
-        ps_state = rule.init_state(center)
+        live, cursor = self._maybe_resume(
+            resume_from, {"ps": rule.init_state(center), "workers": workers,
+                          "orders": 0})
+        ps_state, drawn = live["ps"], live["orders"]
         orders = self.commit_orders()
+        for _ in range(drawn):   # the orders of the rounds already done
+            next(orders)
+        start_epoch = int(cursor.get("epoch", 0))
+        start_round = int(cursor.get("round", 0))
         cols = self._columns()
         # the pipelined round's pending commit, until the first round
         pend, pend_perm, pend_valid = None, list(range(num_workers)), False
         self.epoch_time_s = []
 
-        for epoch in range(self.num_epoch):
-            epoch_losses: list[float] = []
+        for epoch in range(start_epoch, self.num_epoch):
+            first_round = start_round if epoch == start_epoch else 0
+            # a mid-epoch resume: the done rounds' losses are in the
+            # restored history, and their records are not made again
+            epoch_losses: list[float] = list(
+                self.history.get("round_loss", [])[-first_round:]) \
+                if first_round else []
             pending = None  # the previous round's device metrics
 
             def drain(metrics):
@@ -480,30 +676,45 @@ class DistributedTrainer(Trainer):
                 self._record(round_loss=round_loss,
                              staleness=metrics["staleness"].tolist())
 
+            def save_point(point: dict) -> None:
+                # every recorded round is in the history before it saves
+                nonlocal pending
+                if pending is not None:
+                    drain(pending)
+                    pending = None
+                self._maybe_save({"ps": ps_state, "workers": workers,
+                                  "orders": drawn}, point)
+
             # the stall is the time the epoch's segments take to load
             # (for in-memory data, the shuffle)
             t_get = time.monotonic()
             segments = _epoch_segments(dataset, self.seed + 17 * epoch)
             seg_stall = time.monotonic() - t_get
             rounds = 0
+            # ``_epoch_segments`` gives one segment, so ``r`` numbers the
+            # epoch's rounds, as the cursor does
             for segment in segments:
                 if len(segment) < num_workers:
-                    self._record(skipped_segment_rows=len(segment))
+                    if first_round == 0:
+                        self._record(skipped_segment_rows=len(segment))
                     continue
                 per_worker = [_stack_batches(shard, self.batch_size, cols)
                               for shard in segment.repartition(num_workers)]
                 if any(p is None for p in per_worker):
-                    self._record(skipped_segment_rows=len(segment))
+                    if first_round == 0:
+                        self._record(skipped_segment_rows=len(segment))
                     continue
                 n_batches = min(len(next(iter(p.values())))
                                 for p in per_worker)
                 seg_rounds = n_batches // window
-                # tail batches that do not fill a window are dropped, and
-                # counted
-                self._record(dropped_tail_batches=n_batches
-                             - seg_rounds * window)
-                for r in range(seg_rounds):
+                if first_round == 0:
+                    # tail batches that do not fill a window are dropped,
+                    # and counted
+                    self._record(dropped_tail_batches=n_batches
+                                 - seg_rounds * window)
+                for r in range(first_round, seg_rounds):
                     perm = next(orders)
+                    drawn += 1
                     batch = {k: torch.from_numpy(np.stack(
                                  [p[k][r * window:(r + 1) * window]
                                   for p in per_worker])).to(self.device)
@@ -521,12 +732,18 @@ class DistributedTrainer(Trainer):
                     if pending is not None:
                         drain(pending)
                     pending = metrics
+                    every = self.checkpoint_every_rounds
+                    # the epoch's last round saves at the epoch's end
+                    if every and (r + 1) % every == 0 \
+                            and r + 1 < seg_rounds:
+                        save_point({"epoch": epoch, "round": r + 1})
                 rounds += seg_rounds
             if rounds == 0:
                 raise ValueError(
                     f"not enough batches per worker for one "
                     f"communication window ({window}) in any segment")
             drain(pending)
+            pending = None
             if overlap and pend_valid:
                 # the pipeline runs one commit behind: fold the final
                 # pending round in so the returned center has every commit
@@ -536,6 +753,8 @@ class DistributedTrainer(Trainer):
             self.epoch_time_s.append(time.monotonic() - t_get)
             self._record(epoch_loss=float(np.mean(epoch_losses)),
                          segment_stall_s=round(seg_stall, 4))
+            self._eval_epoch({**ps_state.center, **workers[0].model_state})
+            save_point({"epoch": epoch + 1, "round": 0})
         self.parameter_server_state = ps_state
         self.worker_model_states = [w.model_state for w in workers]
         self.trained_variables = {**ps_state.center,
@@ -653,10 +872,8 @@ class _MemberParallelTrainer(Trainer):
     #: True -> member i's init drawn from ``seed + i``
     distinct_inits: ClassVar[bool] = True
 
-    def __init__(self, model, num_models: int = 2,
-                 checkpoint_dir: str | None = None, **kwargs):
+    def __init__(self, model, num_models: int = 2, **kwargs):
         super().__init__(model, **kwargs)
-        self.checkpoint_dir = checkpoint_dir
         self.num_models = int(num_models)
         self.member_variables: list[dict] = []
 
@@ -739,7 +956,7 @@ class EnsembleTrainer(_MemberParallelTrainer):
 
     distinct_inits: ClassVar[bool] = True
 
-    def _train(self, dataset, initial_variables):
+    def _train(self, dataset, initial_variables, resume_from=None):
         self._train_members(dataset, initial_variables)
         results = self.member_variables
         self.trained_variables = results[0]
@@ -764,7 +981,7 @@ class AveragingTrainer(_MemberParallelTrainer):
     def num_workers(self) -> int:
         return self.num_models
 
-    def _train(self, dataset, initial_variables):
+    def _train(self, dataset, initial_variables, resume_from=None):
         states = self._train_members(dataset, initial_variables)
         with torch.no_grad():
             mean = {k: torch.stack([s.params[k] for s in states]).mean(0)

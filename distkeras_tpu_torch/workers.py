@@ -35,10 +35,16 @@ Params = dict[str, torch.Tensor]
 
 class Optimizer(NamedTuple):
     """``init(params) -> state``; ``update(grads, state, params)``
-    applies one step to ``params`` and ``state`` in place."""
+    applies one step to ``params`` and ``state`` in place.  ``chain``:
+    optax's state layout of the same optimizer, the slots of each
+    transformation of its chain in order (``("count", "mu", "nu")`` for
+    ``scale_by_adam``, ``("count",)`` for a scheduled rate, ``()`` for
+    a stateless one); ``convert.train_state_to_flax`` writes the state
+    in it."""
 
     init: Callable[[Params], dict]
     update: Callable[[Params, dict, Params], None]
+    chain: tuple = ()
 
 
 def _zeros(params: Params) -> Params:
@@ -54,13 +60,22 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
+#: in an optimizer's chain: ``scale_by_learning_rate``, whose state is
+#: the update count under a schedule and empty under a constant rate
+RATE = "rate"
+
+
 def _optimizer(lr, slots: Callable[[Params], dict],
-               direction: Callable[..., torch.Tensor]) -> Optimizer:
+               direction: Callable[..., torch.Tensor],
+               chain: tuple) -> Optimizer:
     """A chain ``direction`` then ``scale_by_learning_rate(lr)``:
     ``direction(name, grad, param, state, count)`` returns the update
     before the rate (``count`` is the 1-based step) and advances its
-    own slots in place."""
+    own slots in place.  ``chain``: optax's layout, ``RATE`` where the
+    rate's transformation sits."""
     schedule = lr if callable(lr) else (lambda count: lr)
+    chain = tuple((("count",) if callable(lr) else ()) if t == RATE else t
+                  for t in chain)
 
     def init(params: Params) -> dict:
         return {"count": 0, **slots(params)}
@@ -73,7 +88,7 @@ def _optimizer(lr, slots: Callable[[Params], dict],
             u = direction(n, grads[n], p, state, state["count"])
             p.add_(u * step)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, chain)
 
 
 def sgd(lr=0.01, momentum: float | None = None,
@@ -89,7 +104,8 @@ def sgd(lr=0.01, momentum: float | None = None,
         t = state["trace"][n].mul_(momentum).add_(g)
         return g + momentum * t if nesterov else t
 
-    return _optimizer(lr, slots, direction)
+    return _optimizer(lr, slots, direction,
+                      (("trace",) if momentum else (), RATE))
 
 
 def adam(lr=0.001, b1: float = 0.9, b2: float = 0.999,
@@ -117,7 +133,10 @@ def _adam(lr, b1, b2, eps, weight_decay) -> Optimizer:
         u = mu_hat / (torch.sqrt(nu_hat) + eps)
         return u + weight_decay * p if weight_decay else u
 
-    return _optimizer(lr, slots, direction)
+    adam_state = ("count", "mu", "nu")
+    return _optimizer(lr, slots, direction,
+                      (adam_state, (), RATE) if weight_decay
+                      else (adam_state, RATE))
 
 
 def adagrad(lr=0.01, initial_accumulator_value: float = 0.1,
@@ -131,7 +150,7 @@ def adagrad(lr=0.01, initial_accumulator_value: float = 0.1,
         s = state["sum_of_squares"][n].add_(g * g)
         return torch.where(s > 0, torch.rsqrt(s + eps), 0.0) * g
 
-    return _optimizer(lr, slots, direction)
+    return _optimizer(lr, slots, direction, (("sum_of_squares",), RATE))
 
 
 def rmsprop(lr=0.001, decay: float = 0.9, eps: float = 1e-8) -> Optimizer:
@@ -144,7 +163,9 @@ def rmsprop(lr=0.001, decay: float = 0.9, eps: float = 1e-8) -> Optimizer:
         nu = state["nu"][n].mul_(decay).add_(g * g * (1 - decay))
         return torch.rsqrt(nu + eps) * g
 
-    return _optimizer(lr, slots, direction)
+    # optax.rmsprop: scale_by_rms, the rate, then momentum's trace or
+    # (here) identity
+    return _optimizer(lr, slots, direction, (("nu",), RATE, ()))
 
 
 OPTIMIZERS: dict[str, Callable[..., Optimizer]] = {

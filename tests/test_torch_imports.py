@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``distkeras_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or ``distkeras_tpu``; importing the
-package loads no JAX; entry points default to CUDA and raise without a
-card instead of falling back to the CPU."""
+``chip_smoke.py``) imports JAX, flax, msgpack or ``distkeras_tpu``;
+importing the package loads no JAX; entry points default to CUDA and
+raise without a card instead of falling back to the CPU."""
 
 import ast
 import subprocess
@@ -20,7 +20,7 @@ from distkeras_tpu_torch.models import model_config
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distkeras_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "distkeras_tpu")
 SOURCES = sorted((ROOT / "distkeras_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 CFG = model_config("transformer_lm", (64,), input_dtype="int32",
@@ -47,7 +47,9 @@ def test_no_jax_imports(path):
 def test_import_loads_no_jax():
     code = ("import sys, distkeras_tpu_torch, distkeras_tpu_torch.convert, "
             "distkeras_tpu_torch.ops.fused_block, "
-            "distkeras_tpu_torch.parallel.ring_attention;"
+            "distkeras_tpu_torch.parallel.ring_attention, "
+            "distkeras_tpu_torch.checkpoint, distkeras_tpu_torch.evaluators, "
+            "distkeras_tpu_torch.ops.metrics;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -197,8 +197,7 @@ def test_elastic_trainers_derive_alpha():
 @pytest.mark.parametrize("kw", [
     {"fidelity": "host"}, {"fidelity": "mesh"}, {"model_parallel": 2},
     {"transport": "socket"}, {"ps_shards": 2}, {"compression": "int8"},
-    {"comm_dtype": "bfloat16"}, {"attrib_every": 1},
-    {"checkpoint_every_rounds": 2}, {"checkpoint_dir": "x"}])
+    {"comm_dtype": "bfloat16"}, {"attrib_every": 1}])
 def test_unported_arms_raise(kw):
     cfg = model_config("mlp", (4,), num_classes=2, hidden=(4,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -214,8 +213,5 @@ def test_bad_arguments_raise_as_in_jax():
     t = ADAG(cfg, device="cpu", num_workers=2, communication_window=4,
              batch_size=8)
     data = datasets.synthetic_classification(32, (4,), 2)
-    for kw in ({"resume_from": "x"}, {"eval_dataset": data}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.train(data, **kw)
     with pytest.raises(ValueError, match="communication window"):
         t.train(data)      # 16 rows a worker: 2 batches, window 4
