@@ -131,7 +131,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    file read back bit-equal to its state, ``serialize_params`` and a PS
    snapshot round-tripped; the launch counts of each path, the bytes
    and seconds of each save and load, and the predictor's images/s;
-10. print the kernel table as one JSON line, then the device line last.
+10. the host-wire parameter server: phase 5's model and round
+   (ResNet-50, ``norm="group_pallas"``, ADAG at ``lr_law="scale"``,
+   window 2, batch 32, ``imagenet_synth`` rows) through
+   ``ADAG(fidelity="host")``: worker threads on the card, the server in
+   host memory: (a) ``transport="socket"``, 4 worker threads, 2 epochs:
+   finite losses, the server's clock equal to the commits made, every
+   staleness >= 0, exactly 53 launches of #5 and of #6 per worker step
+   counted across the threads, all one-pass; (b) one worker: ``socket``,
+   ``inprocess`` and ``fidelity="faithful"`` from one start must give
+   bit-equal results and losses; (c) ``compression="int8"``: the wire's
+   bytes against the raw f32 bytes near 1/4 (``HOST_INT8_RATIO``),
+   finite losses; (d) ``ps_shards=2`` over ``socket``: the clock as in
+   (a), the version-delta pull savings; (e) ``ChaosTransport`` resets and
+   truncations under ``worker_retries``: the run completes with every
+   commit applied once (the server's applied commits against those
+   sent, duplicates answered from the reply cache), and the snapshot
+   written after the last commit, restarted by ``PSServer.restart_from``,
+   holds the server's state bit for bit; (f) report, with no limits: one
+   commit's round trip over loopback TCP with the 102 MB center, the
+   host arm's round time beside phase 5's emulated round, and the
+   device's idle share over an epoch under ``torch.profiler``;
+11. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -3361,6 +3382,309 @@ def _checkpoint_phase(seed, torch, np, fb, gn):
     return res, counts
 
 
+# ---- phase 10: the host-wire parameter server (fidelity="host") -------
+
+# phase 5's model and round (ResNet-50, norm="group_pallas", #5-#6, ADAG
+# at lr_law="scale", window 2, batch 32) on the host arm: free-running
+# worker threads on the card against a parameter server in host memory,
+# over real TCP.  512 rows: 2 rounds a worker an epoch at 4 workers
+HOST_PS = {**PS, "fidelity": "host"}
+HOST_ROWS, HOST_EPOCHS = 512, 2
+# (b) one worker, 64 rows: one round an epoch, 2 epochs
+HOST_W1_ROWS = 64
+# (c) int8 commits: 1 byte an element and a few bytes of msgpack a leaf
+# against 4, so the wire/raw ratio sits just above 1/4
+HOST_INT8_RATIO = (0.25, 0.26)
+# (e) chaos on the wire: resets and truncations under the retry budget,
+# a snapshot after every commit
+HOST_CHAOS = dict(reset_rate=0.05, truncate_rate=0.05, skip_ops=8,
+                  max_injections=4)
+HOST_RETRIES = 8
+# (f) the commit's round trip, median of a few; the profiled epoch at
+# 256 rows (one round a worker)
+HOST_RTT_REPS = 3
+HOST_PROFILE_ROWS = 256
+
+
+def _host_trainer(cfg, seed, torch, **kw):
+    from distkeras_tpu_torch import ADAG
+
+    return ADAG(cfg, seed=seed, learning_rate=PS_LR, lr_law="scale",
+                device="cuda", **{**HOST_PS, "num_epoch": HOST_EPOCHS, **kw})
+
+
+def _host_checks(trainer, name, np, workers):
+    """Finite losses, the server's clock equal to the commits the
+    workers made, every staleness >= 0; returns rounds and staleness."""
+    hist = trainer.history
+    losses = hist["round_loss"]
+    (stale,) = hist["staleness"] if "staleness" in hist else ([],)
+    ps = trainer.parameter_server_state
+    print(f"host {name}: commits={len(losses)} clock={ps.num_commits} "
+          f"epoch_loss={hist['epoch_loss']} round_loss="
+          f"{np.round(losses, 4).tolist()} staleness={stale} "
+          f"training_time_s={trainer.training_time:.3f}")
+    if not np.isfinite(losses).all() or not np.isfinite(
+            hist["epoch_loss"]).all():
+        raise SystemExit(f"host {name}: losses not finite")
+    if ps.num_commits != len(losses) or len(stale) != len(losses) \
+            or min(stale) < 0:
+        raise SystemExit(f"host {name}: the PS clock {ps.num_commits} is "
+                         f"not the {len(losses)} commits made, or a "
+                         f"staleness is negative: {stale}")
+    if len(losses) % workers:
+        raise SystemExit(f"host {name}: {len(losses)} commits from "
+                         f"{workers} workers")
+    return len(losses), stale
+
+
+def _commit_rtt(center, torch, np):
+    """One commit's round trip over loopback TCP with the 102 MB center:
+    the client packs its tree, sends it, the server applies ADAG and
+    packs the reply, the client unpacks it; and the parts alone."""
+    from distkeras_tpu_torch.parallel import host_ps
+    from distkeras_tpu_torch.parallel import update_rules as rules
+    from distkeras_tpu_torch.parallel.trees import tree_map
+
+    rng = np.random.default_rng(0)
+    delta = tree_map(lambda x: (1e-4 * rng.standard_normal(x.shape))
+                     .astype(np.float32), center)
+    ps = host_ps.HostParameterServer(rules.AdagRule(), center)
+    server = host_ps.PSServer(ps, center).start()
+    client = host_ps.PSClient(*server.address, worker_id=0, template=center)
+    try:
+        rtt, pack, apply = [], [], []
+        for i in range(HOST_RTT_REPS):
+            t0 = time.perf_counter()
+            client.commit(delta, seq=i)
+            rtt.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            host_ps.pack_params(delta, center)
+            pack.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ps.commit(1, delta)
+            apply.append(time.perf_counter() - t0)
+        client.done()
+    finally:
+        client.close()
+        server.stop()
+    nbytes = len(host_ps.pack_params(center))
+    res = {"center_bytes": nbytes,
+           "commit_rtt_ms": float(np.median(rtt)) * 1e3,
+           "pack_ms": float(np.median(pack)) * 1e3,
+           "apply_and_reply_pack_ms": float(np.median(apply)) * 1e3,
+           "reps": HOST_RTT_REPS}
+    print(f"host rtt: one commit of the {nbytes}-byte center over loopback "
+          f"TCP (pack, send, apply, reply, unpack) "
+          f"{res['commit_rtt_ms']:.3f} ms median of {HOST_RTT_REPS}; "
+          f"pack alone {res['pack_ms']:.3f} ms, the server's apply with "
+          f"its reply's pack {res['apply_and_reply_pack_ms']:.3f} ms")
+    return res
+
+
+def _host_profile(cfg, data, seed, start, torch):
+    """One epoch of the socket arm under ``torch.profiler``: the
+    device's busy time against the run's own (profiled) wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = _host_trainer(cfg, seed, torch, transport="socket",
+                            num_epoch=1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train(data, initial_variables=start)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    kernels = _device_kernels(prof, torch)
+    busy = sum(kernels.values())
+    res = {"wall_s": wall, "device_busy_ms": busy,
+           "idle_share": 1 - busy / 1e3 / wall,
+           "commits": len(trainer.history["round_loss"])}
+    print(f"host profile: one epoch of the socket arm at 4 workers, "
+          f"{res['commits']} "
+          f"commits in {wall:.3f} s (profiled), device busy {busy:.3f} ms, "
+          f"idle share {res['idle_share']:.4f}")
+    return res
+
+
+def _host_ps_phase(seed, torch, np, gn, emulated_round_ms):
+    """Phase 10: ADAG on the host arm over ResNet-50 (#5-#6); see the
+    module docstring.  Returns the numbers and the GroupNorm launch
+    counts of run (a)."""
+    import tempfile
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.parallel import faults, host_ps
+    from distkeras_tpu_torch.parallel import update_rules as rules
+
+    t_phase = time.monotonic()
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **RESNET)
+    data = datasets.imagenet_synth(HOST_ROWS, image_size=IMAGE,
+                                   num_classes=RESNET["num_classes"],
+                                   seed=seed)
+    w, k = HOST_PS["num_workers"], HOST_PS["communication_window"]
+    res: dict = {}
+
+    # (a) 4 worker threads over TCP, 2 epochs
+    trainer = _host_trainer(cfg, seed, torch, transport="socket")
+    start = {n: v.clone() for n, v in trainer.model.state_dict().items()}
+    per_step = sum(_resnet_shapes(trainer.model, PS["batch_size"],
+                                  torch)[0].values())
+    torch.cuda.synchronize()
+    _reset_gn(gn)
+    trainer.train(data, initial_variables=start)
+    torch.cuda.synchronize()
+    launches = _gn_counts(gn)
+    routes = dict(gn.route_launches)
+    commits, stale = _host_checks(trainer, "socket W=4", np, w)
+    want = per_step * k * commits
+    print(f"host socket W=4: GroupNorm launches {launches} by route "
+          f"{routes}; {per_step} a step x {k} steps x {commits} windows")
+    if any(n != want for n in launches.values()) or routes != {
+            "fwd_one_pass": want, "fwd_two_pass": 0,
+            "bwd_one_pass": want, "bwd_two_pass": 0}:
+        raise SystemExit(f"host arm: GroupNorm launches {launches} "
+                         f"({routes}) across {w} threads; expected {want} "
+                         f"each, all one-pass")
+    rounds_per_worker = commits // w
+    res["socket"] = {"commits": commits, "staleness": stale,
+                     "round_loss": trainer.history["round_loss"],
+                     "epoch_loss": trainer.history["epoch_loss"],
+                     "training_time_s": trainer.training_time,
+                     "round_ms": trainer.training_time / rounds_per_worker
+                     * 1e3, "group_norm_launches": launches,
+                     "group_norm_routes": routes,
+                     "emulated_round_ms": emulated_round_ms}
+    print(f"host socket W=4: round_ms={res['socket']['round_ms']:.3f} "
+          f"(the run's training_time over its {rounds_per_worker} rounds "
+          f"a worker, 4 workers' windows and commits in flight together) "
+          f"against the emulated round's {emulated_round_ms:.3f} ms "
+          f"(phase 5)")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) determinism at W=1: socket, inprocess and faithful from one start
+    one = data.take(HOST_W1_ROWS)
+    runs = {}
+    for name, kw in (("socket", dict(transport="socket")),
+                     ("inprocess", dict(transport="inprocess")),
+                     ("faithful", dict(fidelity="faithful"))):
+        t = _host_trainer(cfg, seed, torch, num_workers=1, **kw)
+        out = t.train(one, initial_variables=start)
+        runs[name] = ({n: v.detach().clone() for n, v in out.items()},
+                      t.history["round_loss"])
+        del t
+    same = {name: all(torch.equal(runs["socket"][0][n], v[0][n])
+                      for n in v[0]) and v[1] == runs["socket"][1]
+            for name, v in runs.items()}
+    print(f"host W=1: socket bit-equal to inprocess {same['inprocess']} "
+          f"and to faithful {same['faithful']}; round_loss "
+          f"{runs['socket'][1]}")
+    if not (same["inprocess"] and same["faithful"]):
+        raise SystemExit("host arm at W=1: socket, inprocess and faithful "
+                         "runs from one start are not bit-equal")
+    res["w1"] = {"round_loss": runs["socket"][1], "bit_equal": same}
+    del runs
+    torch.cuda.empty_cache()
+
+    # (c) int8 commits over TCP, 2 workers, one epoch
+    trainer = _host_trainer(cfg, seed, torch, transport="socket",
+                            compression="int8", num_workers=2, num_epoch=1)
+    trainer.train(data, initial_variables=start)
+    _host_checks(trainer, "int8 W=2", np, 2)
+    ratio = trainer.history["commit_wire_bytes"][0] \
+        / trainer.history["commit_raw_bytes"][0]
+    print(f"host int8: wire {trainer.history['commit_wire_bytes'][0]} "
+          f"bytes of raw {trainer.history['commit_raw_bytes'][0]}, "
+          f"ratio {ratio:.5f}")
+    if not HOST_INT8_RATIO[0] < ratio < HOST_INT8_RATIO[1]:
+        raise SystemExit(f"int8 wire/raw ratio {ratio} outside "
+                         f"{HOST_INT8_RATIO}")
+    res["int8"] = {"wire_bytes": trainer.history["commit_wire_bytes"][0],
+                   "raw_bytes": trainer.history["commit_raw_bytes"][0],
+                   "ratio": ratio,
+                   "round_loss": trainer.history["round_loss"]}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) two shards over TCP, 4 workers, one epoch
+    trainer = _host_trainer(cfg, seed, torch, transport="socket",
+                            ps_shards=2, num_epoch=1)
+    trainer.train(data, initial_variables=start)
+    commits, _ = _host_checks(trainer, "sharded K=2", np, w)
+    hist = trainer.history
+    print(f"host sharded: pull_shards_skipped={hist['pull_shards_skipped']}"
+          f" pull_bytes_saved={hist['pull_bytes_saved']}")
+    res["sharded"] = {"commits": commits,
+                      "pull_shards_skipped": hist["pull_shards_skipped"][0],
+                      "pull_bytes_saved": hist["pull_bytes_saved"][0],
+                      "round_loss": hist["round_loss"]}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (e) resets and truncations on the wire under the retry budget; a
+    # snapshot after every commit, read back by a restarted server
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = Path(tmp) / "ps.snap"
+        tel = telemetry.enable()
+        chaos = faults.ChaosTransport(seed=seed, **HOST_CHAOS)
+        try:
+            trainer = _host_trainer(
+                cfg, seed, torch, transport="socket", num_workers=2,
+                num_epoch=1, worker_retries=HOST_RETRIES,
+                ps_snapshot_path=str(snap), ps_snapshot_every=1)
+            with chaos:
+                trainer.train(data, initial_variables=start)
+        finally:
+            telemetry.disable()
+        commits, _ = _host_checks(trainer, "chaos W=2", np, 2)
+        m = tel.metrics
+        dedup = m.sum_counter("ps_commit_dedup_total")
+        applied = m.sum_counter("ps_commits_total")
+        retries = m.sum_counter("ps_client_retries_total")
+        ps = trainer.parameter_server_state
+        print(f"host chaos: injected {chaos.counts}, client retries "
+              f"{retries}, commits applied {applied} of {commits} sent, "
+              f"duplicates answered from the reply cache {dedup}, "
+              f"snapshots {ps.num_snapshots}")
+        if applied != commits or ps.num_commits != commits \
+                or not sum(chaos.counts.values()):
+            raise SystemExit(f"chaos run: {applied} commits applied for "
+                             f"{commits} sent (faults {chaos.counts})")
+        back = host_ps.PSServer.restart_from(
+            str(snap), rules.AdagRule(), ps.center)
+        try:
+            same_snap = (host_ps.pack_params(back.ps.center)
+                         == host_ps.pack_params(ps.center)
+                         and back.ps.num_commits == ps.num_commits
+                         and back.ps.staleness_log == ps.staleness_log)
+        finally:
+            back.stop()
+        print(f"host chaos: the last snapshot restarted bit-equal "
+              f"{same_snap}")
+        if not same_snap:
+            raise SystemExit("PS snapshot read back by restart_from is not "
+                             "the server's state")
+        res["chaos"] = {"faults": dict(chaos.counts), "retries": retries,
+                        "commits": commits, "applied": applied,
+                        "dedup": dedup, "snapshots": ps.num_snapshots,
+                        "restart_bit_equal": same_snap}
+        center = ps.center
+        del trainer, ps
+    torch.cuda.empty_cache()
+
+    # (f) the commit round trip, and the device's idle share
+    res["rtt"] = _commit_rtt(center, torch, np)
+    res["profile"] = _host_profile(cfg, data.take(HOST_PROFILE_ROWS), seed,
+                                   start, torch)
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"host: phase took {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def _gn_summary(timing, mix, pre):
     """The ``kernels`` line's fields of a GroupNorm kernel: times
     launch-weighted over the path's (shape, ReLU) mix, the two-pass
@@ -3603,7 +3927,12 @@ def main() -> int:
     ckpt, ckpt_counts = _checkpoint_phase(args.seed, torch, np, fb, gn)
     torch.cuda.empty_cache()
 
-    # ---- 10. kernel table --------------------------------------------
+    # ---- 10. the host-wire parameter server --------------------------
+    host, host_counts = _host_ps_phase(args.seed, torch, np, gn,
+                                       ps["round_ms"])
+    torch.cuda.empty_cache()
+
+    # ---- 11. kernel table --------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts), and over each
     # path's own: the serving prefills and the training shape; the
@@ -3660,8 +3989,10 @@ def main() -> int:
     gn_paths = {"ps_train": ps_counts,
                 "averaging_train": family_counts["averaging_train"],
                 "ensemble_train": family_counts["ensemble_train"],
-                "ckpt_ps": ckpt_counts["ckpt_ps"]}
-    gn_routes = {"ps_train": ps["group_norm_routes"], **family_routes}
+                "ckpt_ps": ckpt_counts["ckpt_ps"],
+                "host_ps": host_counts}
+    gn_routes = {"ps_train": ps["group_norm_routes"], **family_routes,
+                 "host_ps": host["socket"]["group_norm_routes"]}
     for name, pre, out, line in (("group_norm_fwd", "fwd", "y", 56),
                                  ("group_norm_bwd", "bwd", "dx", 83)):
         kernels.append({
@@ -3784,7 +4115,8 @@ def main() -> int:
             "hop_timing": [{"kernel": k[0], "hop": k[1], **v}
                            for k, v in hop_timing.items()],
             "seq_train": seq, "trainer_family": family,
-            "checkpoint": ckpt, "kernels": kernels}, indent=1))
+            "checkpoint": ckpt, "host_ps": host, "kernels": kernels},
+            indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

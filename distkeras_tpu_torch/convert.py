@@ -215,6 +215,47 @@ def params_to_flax(state_dict: Mapping, num_heads: int | None = None
     return serialization.to_host(_params(state_dict, num_heads))
 
 
+def _staged(leaf, device: torch.device) -> torch.Tensor:
+    """A host numpy leaf as a tensor on ``device``: for a card, one copy
+    into pinned memory, then a copy to the card without waiting (the
+    pinned block is not reused until that copy is done)."""
+    a = np.asarray(leaf)
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(a))
+    host = torch.empty(a.shape, dtype=torch.from_numpy(a[:0].copy()).dtype,
+                       pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(device, non_blocking=True)
+
+
+def copy_from_flax(params: Mapping[str, torch.Tensor], tree: Mapping,
+                   num_heads: int | None = None) -> None:
+    """Copy a flax ``params`` tree of host numpy leaves (a parameter
+    server's pull) into the port's parameter tensors ``params``, in
+    place, on their device: each leaf goes to the device as it is and is
+    laid out there (conv HWIO -> OIHW, Dense ``[in, out]`` -> ``[out,
+    in]``), the reverse of ``params_tree``.  A ``TransformerLM`` tree is
+    mapped on the host (``params_from_flax``) first."""
+    with torch.no_grad():
+        if "embed.weight" in params:
+            src = params_from_flax(tree)
+            for name, p in params.items():
+                p.copy_(src[name])
+            return
+        for name, p in params.items():
+            *path, key = name.split(".")
+            node = tree
+            for part in path:
+                node = node[part]
+            t = _staged(node["kernel" if key == "weight" else key], p.device)
+            if key == "weight":
+                if t.ndim not in (2, 4):
+                    raise ValueError(
+                        f"no torch layout for a {t.ndim}-d flax kernel")
+                t = t.permute(*((3, 2, 0, 1) if t.ndim == 4 else (1, 0)))
+            p.copy_(t)
+
+
 def variables_to_flax(state_dict: Mapping) -> dict:
     """The port's MLP, ConvNet or ResNet ``state_dict`` -> flax variables
     ``{"params": ...}``, plus ``"batch_stats"`` where it holds BatchNorm

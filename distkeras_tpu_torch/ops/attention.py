@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -40,6 +41,19 @@ bwd_dkv_launches = 0
 hop_fwd_launches = 0
 hop_dq_launches = 0
 hop_dkv_launches = 0
+
+#: guards the counters: worker threads launch kernels concurrently, and a
+#: bare ``+= 1`` on a module global can lose counts between threads
+_count_lock = threading.Lock()
+
+
+def _note(*counters: str) -> None:
+    """Add one to each named counter of this module, under
+    ``_count_lock``."""
+    g = globals()
+    with _count_lock:
+        for name in counters:
+            g[name] += 1
 
 
 def _causal_keep(t: int, device) -> torch.Tensor:
@@ -163,7 +177,6 @@ def _launch(fn, name, device, *args):
 
 
 def _kernel(q, k, v, *, scale: float, causal: bool):
-    global launches
     b, h, t, d = q.shape
     _check_kernel_inputs(q, k, v)
     lib = _library("flash_attention_fwd")
@@ -173,7 +186,7 @@ def _kernel(q, k, v, *, scale: float, causal: bool):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, t, d, float(scale), int(bool(causal)),
             _DTYPES[q.dtype])
-    launches += 1
+    _note("launches")
     return out, lse
 
 
@@ -186,7 +199,6 @@ def _bwd_ptrs(q, k, v, do, lse, dsum):
 
 
 def _dq_kernel(q, k, v, do, lse, dsum, *, scale: float, causal: bool):
-    global bwd_dq_launches
     b, h, t, d = q.shape
     ptrs = _bwd_ptrs(q, k, v, do, lse, dsum)
     lib = _library("flash_attention_bwd")
@@ -194,13 +206,12 @@ def _dq_kernel(q, k, v, do, lse, dsum, *, scale: float, causal: bool):
     _launch(lib.flash_attention_bwd_dq, "flash_attention_bwd_dq", q.device,
             *ptrs, dq.data_ptr(), b, h, t, d, float(scale),
             int(bool(causal)), _DTYPES[q.dtype])
-    bwd_dq_launches += 1
+    _note("bwd_dq_launches")
     return dq
 
 
 def _dkv_kernel(q, k, v, do, lse, dsum, *, scale: float,
                 causal: bool):
-    global bwd_dkv_launches
     b, h, t, d = q.shape
     ptrs = _bwd_ptrs(q, k, v, do, lse, dsum)
     lib = _library("flash_attention_bwd")
@@ -208,7 +219,7 @@ def _dkv_kernel(q, k, v, do, lse, dsum, *, scale: float,
     _launch(lib.flash_attention_bwd_dkv, "flash_attention_bwd_dkv",
             q.device, *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, t, d,
             float(scale), int(bool(causal)), _DTYPES[q.dtype])
-    bwd_dkv_launches += 1
+    _note("bwd_dkv_launches")
     return dk, dv
 
 
@@ -448,7 +459,6 @@ def _hop_sizes(q, k):
 
 def _hop_fwd_kernel(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
                     scale: float, causal: bool):
-    global hop_fwd_launches
     _check_hop(q, k, v)
     for name, x, shape in (("m", m, q.shape[:3]), ("l", l, q.shape[:3]),
                            ("acc", acc, q.shape)):
@@ -458,7 +468,7 @@ def _hop_fwd_kernel(q, k, v, m, l, acc, *, q_offset: int, k_offset: int,
             *(x.data_ptr() for x in (q, k, v, m, l, acc)),
             *_hop_sizes(q, k), q_offset, k_offset, scale, int(causal),
             _DTYPES[q.dtype])
-    hop_fwd_launches += 1
+    _note("hop_fwd_launches")
     return m, l, acc
 
 
@@ -473,7 +483,6 @@ def _hop_bwd_ptrs(q, k, v, do, lse, dsum):
 
 def _hop_dq_kernel(q, k, v, do, lse, dsum, *, q_offset: int,
                    k_offset: int, scale: float, causal: bool, dq=None):
-    global hop_dq_launches
     ptrs = _hop_bwd_ptrs(q, k, v, do, lse, dsum)
     accumulate = dq is not None
     if accumulate:
@@ -484,14 +493,13 @@ def _hop_dq_kernel(q, k, v, do, lse, dsum, *, q_offset: int,
     _launch(lib.flash_hop_bwd_dq, "flash_hop_bwd_dq", q.device, *ptrs,
             dq.data_ptr(), *_hop_sizes(q, k), q_offset, k_offset, scale,
             int(causal), int(accumulate), _DTYPES[q.dtype])
-    hop_dq_launches += 1
+    _note("hop_dq_launches")
     return dq
 
 
 def _hop_dkv_kernel(q, k, v, do, lse, dsum, *, q_offset: int,
                     k_offset: int, scale: float, causal: bool, dk=None,
                     dv=None):
-    global hop_dkv_launches
     ptrs = _hop_bwd_ptrs(q, k, v, do, lse, dsum)
     if (dk is None) != (dv is None):
         raise ValueError("carry both dk and dv, or neither")
@@ -506,7 +514,7 @@ def _hop_dkv_kernel(q, k, v, do, lse, dsum, *, q_offset: int,
     _launch(lib.flash_hop_bwd_dkv, "flash_hop_bwd_dkv", q.device, *ptrs,
             dk.data_ptr(), dv.data_ptr(), *_hop_sizes(q, k), q_offset,
             k_offset, scale, int(causal), int(accumulate), _DTYPES[q.dtype])
-    hop_dkv_launches += 1
+    _note("hop_dkv_launches")
     return dk, dv
 
 

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -106,6 +107,19 @@ tail_bwd_launches = 0
 input_copies = 0
 #: explicit channels-last copies of an incoming gradient
 gradient_copies = 0
+
+#: guards the counters: worker threads launch kernels concurrently, and a
+#: bare ``+= 1`` on a module global can lose counts between threads
+_count_lock = threading.Lock()
+
+
+def _note(*counters: str) -> None:
+    """Add one to each named counter of this module, under
+    ``_count_lock``."""
+    g = globals()
+    with _count_lock:
+        for name in counters:
+            g[name] += 1
 
 
 # ---- plain versions --------------------------------------------------
@@ -457,7 +471,6 @@ def _f32(shape, device):
 
 def _conv_gn_fwd_kernel(x3, w, gamma, beta, *, groups, eps, relu,
                         store=None):
-    global conv_gn_fwd_launches
     _check_kernel_inputs(x3, w, gamma, beta)
     b, hw, cin = x3.shape
     cout = w.shape[1]
@@ -470,13 +483,12 @@ def _conv_gn_fwd_kernel(x3, w, gamma, beta, *, groups, eps, relu,
             y.data_ptr(), *_ptrs(scratch), b, hw, cin, cout, groups,
             plan["rows"], int(plan["store"]), float(eps), int(relu),
             _DTYPES[x3.dtype])
-    conv_gn_fwd_launches += 1
+    _note("conv_gn_fwd_launches")
     return y
 
 
 def _conv_gn_bwd_kernel(x3, w, gamma, beta, dy3, *, groups, eps, relu,
                         store=None):
-    global conv_gn_bwd_launches
     _check_kernel_inputs(x3, w, gamma, beta, dy3)
     b, hw, cin = x3.shape
     cout = w.shape[1]
@@ -492,13 +504,12 @@ def _conv_gn_bwd_kernel(x3, w, gamma, beta, dy3, *, groups, eps, relu,
             dbeta.data_ptr(), *_ptrs(scratch), b, hw, cin, cout, groups,
             plan["rows"], plan["chunks"], plan["kc"], int(plan["store"]),
             float(eps), int(relu), _DTYPES[x3.dtype])
-    conv_gn_bwd_launches += 1
+    _note("conv_gn_bwd_launches")
     return dx, dw, dgamma, dbeta
 
 
 def _tail_fwd_kernel(y2, w, g2, b2, g3, b3, res, *, groups2, groups3, eps,
                      store=None):
-    global tail_fwd_launches
     _check_kernel_inputs(y2, w, g2, b2, g3, b3, res)
     b, hw, cm = y2.shape
     cout = w.shape[1]
@@ -512,13 +523,12 @@ def _tail_fwd_kernel(y2, w, g2, b2, g3, b3, res, *, groups2, groups3, eps,
             g3.data_ptr(), b3.data_ptr(), res.data_ptr(), out.data_ptr(),
             *_ptrs(scratch), b, hw, cm, cout, groups2, groups3, plan["rows"],
             int(plan["store"]), float(eps), _DTYPES[y2.dtype])
-    tail_fwd_launches += 1
+    _note("tail_fwd_launches")
     return out
 
 
 def _tail_bwd_kernel(y2, w, g2, b2, g3, b3, res, dout, *, groups2, groups3,
                      eps):
-    global tail_bwd_launches
     _check_kernel_inputs(y2, w, g2, b2, g3, b3, res, dout)
     b, hw, cm = y2.shape
     cout = w.shape[1]
@@ -536,7 +546,7 @@ def _tail_bwd_kernel(y2, w, g2, b2, g3, b3, res, dout, *, groups2, groups3,
             dg3.data_ptr(), db3.data_ptr(), dres.data_ptr(), *_ptrs(scratch),
             b, hw, cm, cout, groups2, groups3, plan["rows"], plan["chunks"],
             plan["kc"], float(eps), _DTYPES[y2.dtype])
-    tail_bwd_launches += 1
+    _note("tail_bwd_launches")
     return dy2, dw, dg2, db2, dg3, db3, dres
 
 
@@ -638,10 +648,9 @@ def bottleneck_tail_bwd(y2, w, g2, b2, g3, b3, res, dout, *, groups2: int,
 def channels_last(x):
     """``x [B, C, H, W]`` with channels-last memory: itself where it has
     that layout, else one explicit copy, counted in ``input_copies``."""
-    global input_copies
     if x.movedim(1, -1).is_contiguous():
         return x
-    input_copies += 1
+    _note("input_copies")
     return x.contiguous(memory_format=torch.channels_last)
 
 
@@ -661,11 +670,10 @@ def _grad_rows(dy, dtype):
     """An incoming gradient ``[B, C, H, W]`` as ``[B, HW, C]`` rows of
     ``dtype``, copied once (counted in ``gradient_copies``) where its
     layout or dtype differ."""
-    global gradient_copies
     dyl = dy.movedim(1, -1)
     if not dyl.is_contiguous() or dyl.dtype != dtype:
         dyl = dyl.to(dtype=dtype).contiguous()
-        gradient_copies += 1
+        _note("gradient_copies")
     return dyl.reshape(dy.shape[0], -1, dy.shape[1])
 
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import math
 from typing import NamedTuple
 
@@ -77,6 +78,23 @@ bwd_launches = 0
 route_launches = {f"{d}_{r}": 0 for d in ("fwd", "bwd") for r in ROUTES}
 #: explicit channels-last copies of an incoming gradient
 gradient_copies = 0
+
+#: guards the counters: worker threads launch kernels concurrently, and a
+#: bare ``+= 1`` on a module global can lose counts between threads
+_count_lock = threading.Lock()
+
+
+def _note(*counters: str) -> None:
+    """Add one to each named counter of this module (``fwd_launches``,
+    ``bwd_launches``, ``gradient_copies``) or key of ``route_launches``,
+    under ``_count_lock``."""
+    g = globals()
+    with _count_lock:
+        for name in counters:
+            if name in g:
+                g[name] += 1
+            else:
+                g["route_launches"][name] += 1
 
 
 class Plan(NamedTuple):
@@ -300,7 +318,6 @@ def _fwd_kernel(x3, gamma, beta, *, groups: int, eps: float, relu: bool,
                 route=None, k=None, splits=None):
     """The forward kernel on the route ``launch_plan`` chooses
     (``route``, ``k`` and ``splits`` force one)."""
-    global fwd_launches
     _check_kernel_inputs(x3, gamma, beta)
     b, hw, c = x3.shape
     dev = x3.device
@@ -316,8 +333,7 @@ def _fwd_kernel(x3, gamma, beta, *, groups: int, eps: float, relu: bool,
             mean.data_ptr(), inv.data_ptr(), part.data_ptr(), b, hw, c,
             groups, plan.rows, plan.k, plan.splits, _count(x3, groups),
             float(eps), int(relu), _DTYPES[x3.dtype])
-    fwd_launches += 1
-    route_launches[f"fwd_{plan.route}"] += 1
+    _note("fwd_launches", f"fwd_{plan.route}")
     return y, mean, inv
 
 
@@ -325,7 +341,6 @@ def _bwd_kernel(x3, dy3, gamma, beta, mean, inv, *, groups: int,
                 relu: bool, route=None, k=None, splits=None):
     """The backward kernel on the route ``launch_plan`` chooses
     (``route``, ``k`` and ``splits`` force one)."""
-    global bwd_launches
     _check_kernel_inputs(x3, dy3, gamma, beta, mean, inv)
     if dy3.shape != x3.shape or dy3.dtype != x3.dtype:
         raise ValueError("dy must match x in shape and dtype")
@@ -346,8 +361,7 @@ def _bwd_kernel(x3, dy3, gamma, beta, mean, inv, *, groups: int,
             dx.data_ptr(), dgamma_b.data_ptr(), dbeta_b.data_ptr(),
             part.data_ptr(), b, hw, c, groups, plan.rows, plan.k,
             plan.splits, _count(x3, groups), int(relu), _DTYPES[x3.dtype])
-    bwd_launches += 1
-    route_launches[f"bwd_{plan.route}"] += 1
+    _note("bwd_launches", f"bwd_{plan.route}")
     return dx, dgamma_b, dbeta_b
 
 
@@ -477,12 +491,11 @@ class _GroupNorm(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        global gradient_copies
         x3, gamma, beta, mean, inv = ctx.saved_tensors
         dyl = dy.movedim(1, -1)
         if not dyl.is_contiguous() or dyl.dtype != x3.dtype:
             dyl = dyl.to(dtype=x3.dtype).contiguous()
-            gradient_copies += 1
+            _note("gradient_copies")
         dx3, dgamma_b, dbeta_b = group_norm_bwd(
             x3, dyl.view(x3.shape), gamma, beta, mean, inv,
             groups=ctx.groups, relu=ctx.relu)

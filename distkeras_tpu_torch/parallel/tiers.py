@@ -7,8 +7,8 @@ running worker threads against a host parameter server), ``faithful``
 and ``fast`` (the emulated rounds of ``ps_emulator``: commits
 serialized by a seeded permutation, scanned or in closed form) and
 ``mesh`` (a data plane with the center sharded over the workers).  The
-port runs ``faithful`` and ``fast``; the trainers raise
-``NotImplementedError`` for the other two (queue 4 in ROADMAP.md).
+port runs ``host``, ``faithful`` and ``fast``; the trainers raise
+``NotImplementedError`` for ``mesh`` (ROADMAP.md §1 item 8).
 """
 
 from __future__ import annotations

@@ -25,10 +25,10 @@ raises, as under ``strict_types``); ``from_state_dict`` restores into a
 template and, like flax, ignores keys the template lacks.
 
 Leaves may be numpy arrays and scalars or torch tensors on any device.
-Tensors on a card come to the host with one synchronisation per call:
-each leaf is copied into pinned host memory without waiting, and the
-host then waits once for the card; nothing is gathered on the card
-(``to_host``).  ``bfloat16`` leaves (which numpy cannot
+Tensors on a card come to the host with one wait per call: each leaf
+is copied into pinned host memory without waiting, and the host then
+waits once, on an event recorded after the copies; nothing is gathered
+on the card (``to_host``).  ``bfloat16`` leaves (which numpy cannot
 hold without ``ml_dtypes``) are written from, and read back into,
 torch: the payload is the 2-byte words, decoded as a ``torch.bfloat16``
 tensor.  Every other dtype decodes to a read-only numpy array, as
@@ -69,8 +69,10 @@ def to_host(tree):
     laid out in C order there (a view is copied leaf by leaf, and each
     copy's memory serves the next: a save takes at most one leaf's
     memory on the card) and copied into pinned host memory without
-    waiting; the host then waits once for each card, so a save
-    synchronises once, not once per leaf."""
+    waiting; the host then waits once for each card, on an event
+    recorded after the copies on the current stream, so a save waits
+    once, not once per leaf, and a worker thread does not wait for
+    other threads' later work."""
     devices: set[torch.device] = set()
 
     def copy(x):
@@ -84,7 +86,13 @@ def to_host(tree):
 
     host = _walk(tree, copy)
     for device in devices:
-        torch.cuda.synchronize(device)
+        # wait for this thread's copies only: an event recorded after
+        # them on the current stream (a device-wide synchronize would
+        # also wait for work other threads queued on other streams)
+        with torch.cuda.device(device):
+            done = torch.cuda.Event()
+            done.record()
+        done.synchronize()
     return _walk(host, lambda x: x.numpy() if isinstance(x, torch.Tensor)
                  and x.dtype != torch.bfloat16 else x)
 
@@ -325,6 +333,25 @@ def _pack(obj, out: list) -> None:
             ">d", obj.real), b"\xcb" + struct.pack(">d", obj.imag)])
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
+
+
+def packb(obj) -> bytes:
+    """``msgpack.packb(obj)``'s bytes (bin type on, maps in insertion
+    order) for plain Python objects: None, bools, ints, floats, str,
+    bytes, lists and dicts; no flax ext types beyond what ``_pack``
+    writes for arrays."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def unpackb(data) -> Any:
+    """``msgpack.unpackb(data)``: bins as ``bytes``, strs as ``str``."""
+    reader = _Reader(data)
+    obj = reader.read()
+    if reader.pos != len(reader.buf):
+        raise ValueError("extra data after the msgpack object")
+    return obj
 
 
 def pack_pieces(tree) -> list:

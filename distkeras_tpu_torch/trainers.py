@@ -37,13 +37,18 @@ the JAX package's file format (``checkpoint.py``), and
 resumed run repeats the uninterrupted one bit for bit, since every
 random source (the shuffles, the commit orders, each state's stream) is
 keyed by saved state.  ``train(eval_dataset=...)`` records
-``history["eval_accuracy"]`` once per epoch.  The host and mesh tiers,
-SyncTrainer's tensor and pipeline parallelism and profiling are not
-ported yet: see ROADMAP.md §1.
+``history["eval_accuracy"]`` once per epoch.  ``fidelity="host"`` runs
+the PS family as free-running worker threads against a parameter
+server on the host (``parallel.host_ps``), over direct calls or TCP, on
+the JAX package's wire.  The mesh tier, SyncTrainer's tensor and
+pipeline parallelism, the replicated, elastic and hierarchical PS arms
+and profiling are not ported yet: see ROADMAP.md §1.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 import time
 from pathlib import Path
 from typing import ClassVar, Mapping, Sequence
@@ -296,6 +301,31 @@ def _restore_stream(state: TrainState, saved, key) -> None:
         state.rng = convert.stream_from_key(key, state.rng.device)
 
 
+def _clone_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    return x
+
+
+def _snapshot_state(state: TrainState):
+    """What a retried window must start from: the step, optimizer state,
+    model state and stream position before the window."""
+    return (state.step, _clone_tree(state.opt_state),
+            _clone_tree(state.model_state),
+            None if state.rng is None else state.rng.get_state())
+
+
+def _restore_state(state: TrainState, snap) -> None:
+    step, opt, model_state, rng = snap
+    state.step = step
+    state.opt_state = _clone_tree(opt)
+    state.model_state = _clone_tree(model_state)
+    if rng is not None:
+        state.rng.set_state(rng)
+
+
 class SingleTrainer(Trainer):
     """Sequential baseline: one worker, whole dataset (reference
     ``SingleTrainer``).  Steps run from a Python loop over chunks of
@@ -412,22 +442,12 @@ class SyncTrainer(SingleTrainer):
 
 # the JAX DistributedTrainer's keyword arguments of tiers and layers the
 # port does not have yet, with their defaults and ROADMAP.md §1 items
-_HOST_WIRE = 4
 _MESH_TIER = 8
+_ROBUSTNESS = 10
 _UNPORTED_KWARGS = {
-    "transport": ("inprocess", _HOST_WIRE),
-    "max_worker_failures": (0, _HOST_WIRE),
-    "worker_retries": (0, _HOST_WIRE),
-    "worker_timeout": (None, _HOST_WIRE),
-    "fault_injector": (None, _HOST_WIRE),
-    "compression": (None, _HOST_WIRE),
-    "ps_address": (None, _HOST_WIRE),
-    "ps_replicas": (None, _HOST_WIRE),
-    "ps_shards": (1, _HOST_WIRE),
-    "ps_elastic": (False, _HOST_WIRE),
-    "ps_groups": (None, _HOST_WIRE),
-    "ps_snapshot_path": (None, _HOST_WIRE),
-    "ps_snapshot_every": (0, _HOST_WIRE),
+    "ps_replicas": (None, _ROBUSTNESS),
+    "ps_elastic": (False, _ROBUSTNESS),
+    "ps_groups": (None, _ROBUSTNESS),
     "comm_dtype": ("float32", _MESH_TIER),
     "comm_codec": (None, _MESH_TIER),
     "metrics_every": (1, _MESH_TIER),
@@ -459,6 +479,32 @@ class DistributedTrainer(Trainer):
     ``segment_stall_s``.  ``epoch_time_s``: each epoch's wall seconds,
     from its shuffle to its last round's metrics on the host.
 
+    ``fidelity="host"`` runs the reference's own design: free-running
+    worker threads (each with its own copy of the model, all on the
+    trainer's device) against a concurrent parameter server on the host
+    (``parallel.host_ps``), whose center is the flax ``params`` tree of
+    numpy leaves, the JAX package's wire layout: ``transport=
+    "inprocess"`` (direct calls) or ``"socket"`` (TCP, a server the
+    trainer starts, or an external one at ``ps_address``).  Staleness
+    emerges from the races.  Its keywords are the JAX trainer's:
+    ``compression`` (delta family; error feedback on the worker),
+    ``commit_overlap`` (delta family; each exchange runs under the next
+    window), ``worker_retries``, ``max_worker_failures``,
+    ``worker_timeout`` (a watchdog records silent workers),
+    ``fault_injector(worker, epoch, round)``, ``ps_address``,
+    ``ps_shards`` (``parallel.sharded_ps``), ``ps_snapshot_path`` and
+    ``ps_snapshot_every``.  History: ``round_loss`` (in completion
+    order), ``staleness`` (the server's log), ``epoch_loss``,
+    ``dropped_tail_batches``, ``slo_health`` and, by arm,
+    ``worker_failures``, ``worker_round_retries``,
+    ``detected_idle_workers``, ``ps_snapshots``, ``commit_wire_bytes``/
+    ``commit_raw_bytes``, ``pull_shards_skipped``/``pull_bytes_saved``.
+    ``train()`` returns the center with the initial model state (the
+    JAX host arm's result); ``parameter_server_state`` is the server
+    (None for an external one).  ``ps_replicas``, ``ps_elastic`` and
+    ``ps_groups`` raise (ROADMAP.md §1 item 10), as does a run in more
+    than one process (item 8).
+
     With ``checkpoint_dir``, the state is saved at every epoch's end and,
     with ``checkpoint_every_rounds=r``, after every r-th round inside an
     epoch (a save due at an epoch's last round is the epoch-end save).
@@ -477,9 +523,16 @@ class DistributedTrainer(Trainer):
 
     def __init__(self, model, num_workers: int = 2,
                  communication_window: int = 5,
-                 fidelity: str = "faithful", model_parallel: int = 1,
-                 lr_law: str = "warn", commit_overlap: bool = False,
-                 checkpoint_every_rounds: int | None = None, **kwargs):
+                 fidelity: str = "faithful", transport: str = "inprocess",
+                 checkpoint_every_rounds: int | None = None,
+                 max_worker_failures: int = 0, worker_retries: int = 0,
+                 worker_timeout: float | None = None,
+                 fault_injector=None, compression=None,
+                 model_parallel: int = 1, lr_law: str = "warn",
+                 commit_overlap: bool = False,
+                 ps_address: tuple[str, int] | None = None,
+                 ps_shards: int = 1, ps_snapshot_path: str | None = None,
+                 ps_snapshot_every: int = 0, **kwargs):
         for key, (default, item) in _UNPORTED_KWARGS.items():
             if key in kwargs and kwargs.pop(key) != default:
                 raise _unsupported(key, item)
@@ -490,10 +543,8 @@ class DistributedTrainer(Trainer):
         self.tier = resolve_tier(fidelity)
         self.fidelity = fidelity
         self._check_checkpoint_tier(self.checkpoint_dir)
-        if self.tier.data_plane != "emulated":
-            raise _unsupported(
-                f"fidelity={fidelity!r}",
-                _HOST_WIRE if fidelity == "host" else _MESH_TIER)
+        if self.tier.data_plane == "mesh":
+            raise _unsupported(f"fidelity={fidelity!r}", _MESH_TIER)
         if int(model_parallel) != 1:
             raise _unsupported("model_parallel > 1", 9)
         import torch.distributed as dist
@@ -501,6 +552,56 @@ class DistributedTrainer(Trainer):
         if dist.is_available() and dist.is_initialized() \
                 and dist.get_world_size() > 1:
             raise _unsupported("multi-host PS training", _MESH_TIER)
+        self.transport = transport
+        self.max_worker_failures = int(max_worker_failures)
+        self.worker_retries = int(worker_retries)
+        self.fault_injector = fault_injector
+        self.worker_timeout = (None if worker_timeout is None
+                               else float(worker_timeout))
+        self.compression = compression
+        if compression is not None:
+            from distkeras_tpu_torch.parallel.compression import (
+                resolve_codec)
+
+            resolve_codec(compression)  # fail fast on a bad spec
+        if self.worker_timeout is not None and self.worker_timeout <= 0:
+            raise ValueError(
+                f"worker_timeout must be positive, got {worker_timeout}")
+        self.ps_address = (None if ps_address is None
+                           else (str(ps_address[0]), int(ps_address[1])))
+        self.ps_shards = int(ps_shards)
+        if self.ps_shards < 1:
+            raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
+        self.ps_snapshot_path = ps_snapshot_path
+        self.ps_snapshot_every = int(ps_snapshot_every)
+        if not self.tier.concurrent and (
+                self.max_worker_failures or self.worker_retries
+                or self.worker_timeout is not None
+                or fault_injector is not None or compression is not None
+                or ps_address is not None or self.ps_shards > 1
+                or ps_snapshot_path is not None or self.ps_snapshot_every):
+            raise ValueError(
+                "max_worker_failures / worker_retries / worker_timeout "
+                "/ fault_injector / compression / ps_address / "
+                "ps_replicas / ps_shards / ps_groups / ps_snapshot_* "
+                "apply only to "
+                "fidelity='host' (the compiled tiers are "
+                "deterministic; recover via checkpoint/resume), got "
+                f"fidelity={fidelity!r}; concurrent tiers: "
+                f"{tiers_with('concurrent')}")
+        if ps_address is not None and transport != "socket":
+            raise ValueError(
+                "ps_address attaches to an external PSServer over TCP; "
+                f"it requires transport='socket', got {transport!r}")
+        if self.ps_snapshot_every and ps_snapshot_path is None:
+            raise ValueError(
+                "ps_snapshot_every needs ps_snapshot_path to write to")
+        if ps_address is not None and (ps_snapshot_path is not None
+                                       or self.ps_snapshot_every):
+            raise ValueError(
+                "with an external ps_address, configure snapshotting "
+                "on the externally created HostParameterServer, not "
+                "on the trainer (the trainer does not own the server)")
         self.commit_overlap = bool(commit_overlap)
         if self.commit_overlap and not self.tier.commit_overlap:
             raise ValueError(
@@ -627,6 +728,8 @@ class DistributedTrainer(Trainer):
 
     def _train(self, dataset, initial_variables, resume_from=None):
         self._check_checkpoint_tier(resume_from)
+        if self.tier.data_plane == "host-wire":
+            return self._train_host(dataset, initial_variables)
         rule = self.allocate_rule()
         tx = self._tx()
         variables = self._init_variables(initial_variables)
@@ -760,6 +863,453 @@ class DistributedTrainer(Trainer):
         self.trained_variables = {**ps_state.center,
                                   **workers[0].model_state}
         self.model.load_state_dict(self.trained_variables)
+        return self.trained_variables
+
+    # -- the host arm ------------------------------------------------------
+
+    def _train_host(self, dataset, initial_variables):
+        """Design 5a (SURVEY.md §7): free-running worker threads against
+        a concurrent host-side parameter server, the JAX package's
+        ``_train_host`` (one process).  Each worker thread trains its
+        own copy of the model on the trainer's device, on the device's
+        current stream; between windows it turns its parameters into the
+        flax tree on the device, copies it to the host once (waiting on
+        an event, not the device) and exchanges it with the server,
+        whose center is that tree of numpy leaves."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from distkeras_tpu_torch import flight_recorder
+        from distkeras_tpu_torch.analysis import racecheck
+        from distkeras_tpu_torch.parallel.compression import (raw_nbytes,
+                                                              resolve_codec)
+        from distkeras_tpu_torch.parallel.host_ps import (
+            HostParameterServer, PSClient, PSRetryExhausted, PSServer,
+            ResilientPSClient)
+        from distkeras_tpu_torch.parallel.trees import tree_map
+
+        rule = self.allocate_rule()
+        codec = resolve_codec(self.compression)
+        if codec is not None and rule.payload_kind != "delta":
+            raise ValueError(
+                "compression applies only to the delta-family rules "
+                "(DOWNPOUR/ADAG/DynSGD): their additive payloads are "
+                "error-feedback-correctable; the elastic family "
+                "commits absolute parameters")
+        if self.commit_overlap and rule.payload_kind != "delta":
+            raise ValueError(
+                "commit_overlap on the host arm supports the delta "
+                "family only (the elastic exchange folds the pulled "
+                "center back into the worker's CURRENT locals — "
+                "nothing to overlap)")
+        if self.transport not in ("inprocess", "socket"):
+            raise ValueError(
+                f"unknown transport {self.transport!r}; "
+                "expected 'inprocess' or 'socket'")
+        tx = self._tx()
+        variables = self._init_variables(initial_variables)
+        heads = self._num_heads()
+        names = [n for n, _ in self.model.named_parameters()]
+        # the wire's tree: flax layout, f32 numpy leaves
+        center = serialization.to_host(convert.params_tree(
+            {n: variables[n] for n in names}, heads))
+        model_state = {n: torch.as_tensor(variables.get(n, b)).detach().to(
+                           device=self.device, dtype=b.dtype, copy=True)
+                       for n, b in self.model.named_buffers()}
+        num_workers = self.num_workers
+        window = self.communication_window
+
+        shard_plan = None
+        if self.ps_shards > 1:
+            from distkeras_tpu_torch.parallel.sharded_ps import plan_shards
+
+            # the one plan every endpoint derives from (template, K)
+            shard_plan = plan_shards(center, self.ps_shards)
+
+        ps = None
+        server = None
+        if self.ps_address is None:
+            if self.ps_shards > 1:
+                from distkeras_tpu_torch.parallel.sharded_ps import (
+                    ShardedParameterServer)
+
+                ps = ShardedParameterServer(
+                    rule, center, self.ps_shards,
+                    snapshot_path=self.ps_snapshot_path,
+                    snapshot_every=self.ps_snapshot_every)
+            else:
+                ps = HostParameterServer(
+                    rule, center, snapshot_path=self.ps_snapshot_path,
+                    snapshot_every=self.ps_snapshot_every)
+            if self.transport == "socket":
+                server = PSServer(ps, center, host="127.0.0.1").start()
+        ps_address = (self.ps_address if self.ps_address is not None
+                      else server.address if server is not None else None)
+
+        # every worker thread its own module: ``functional_call`` swaps
+        # a module's tensors for the duration of a forward
+        models = [self.model] + [copy.deepcopy(self.model)
+                                 for _ in range(num_workers - 1)]
+        cols = self._columns()
+        round_records = telemetry.Series()  # (worker, epoch, loss)
+        retry_records = telemetry.Series()  # (worker, epoch, round)
+        failures = telemetry.Series()       # (worker, exception)
+        wire_total = telemetry.Counter()    # codec-arm commit bytes
+        raw_total = telemetry.Counter()
+        skip_total = telemetry.Counter()    # version-delta pull savings
+        saved_total = telemetry.Counter()   # (sharded socket arm)
+
+        # the epoch's shuffle and repartition, built once by the first
+        # worker to reach it (others wait on its event); a failed build
+        # poisons the entry so waiters raise instead of hanging; entries
+        # go once every live worker has fetched them
+        shard_lock = racecheck.lock("trainers.shard")
+        shard_cache: dict[int, tuple] = {}  # epoch -> (shards|exc,
+        #                                     fetched, event, ready)
+        dead_workers: set[int] = set()
+        dropped_per_epoch = [0] * self.num_epoch
+        skipped_rows_per_epoch = [0] * self.num_epoch
+        accum_lock = racecheck.lock("trainers.accum")
+
+        def _sweep_shard_cache():
+            # caller holds shard_lock
+            for e in [e for e, (_, fetched, _, ready)
+                      in shard_cache.items()
+                      if ready and fetched | dead_workers
+                      >= set(range(num_workers))]:
+                del shard_cache[e]
+
+        def epoch_shard(epoch: int, w: int):
+            """``(worker w's rows or None, the segment's rows)``: None
+            when the segment cannot give every worker a row."""
+            while True:
+                build = False
+                with shard_lock:
+                    entry = shard_cache.get(epoch)
+                    if entry is None:
+                        event = threading.Event()
+                        shard_cache[epoch] = (None, set(), event, False)
+                        build = True
+                    else:
+                        shards, fetched, event, ready = entry
+                        if ready:
+                            fetched.add(w)
+                            _sweep_shard_cache()
+                            if isinstance(shards, BaseException):
+                                raise RuntimeError(
+                                    f"epoch {epoch}'s segment failed to "
+                                    "build in another worker") from shards
+                            rows, parts = shards
+                            return (None if parts is None
+                                    else parts[w]), rows
+                if not build:
+                    event.wait()
+                    continue
+                shards: object = None
+                try:
+                    (segment,) = _epoch_segments(dataset,
+                                                 self.seed + 17 * epoch)
+                    shards = (len(segment),
+                              segment.repartition(num_workers)
+                              if len(segment) >= num_workers else None)
+                except BaseException as exc:
+                    shards = exc
+                    raise
+                finally:
+                    with shard_lock:
+                        shard_cache[epoch] = (shards, set(), event, True)
+                    event.set()
+
+        def note_death(w: int):
+            with shard_lock:
+                dead_workers.add(w)
+                _sweep_shard_cache()
+
+        def worker_loop(w: int):
+            # (epoch, round) the retry callback stamps; -1 = startup.
+            # Network-level failures are retried INSIDE
+            # ResilientPSClient; this loop keeps the compute-level
+            # budget (fault_injector, a poisoned window).
+            round_ctx = [-1, -1]
+
+            def on_retry(attempt, exc):
+                retry_records.append((w, round_ctx[0], round_ctx[1]))
+                telemetry.instant("worker_retry", worker=w,
+                                  epoch=round_ctx[0], round=round_ctx[1])
+
+            retry_kw = dict(retries=self.worker_retries,
+                            seed=self.seed + 101 * w, on_retry=on_retry)
+            socket_arm = ps_address is not None
+            sharded_socket = socket_arm and self.ps_shards > 1
+            shard_stats = ({"pull_shards_skipped": 0,
+                            "pull_bytes_saved": 0}
+                           if sharded_socket else None)
+            if socket_arm:
+                client = ResilientPSClient.for_address(
+                    *ps_address, worker_id=w, template=center,
+                    codec=codec, shards=self.ps_shards,
+                    shard_stats=shard_stats, **retry_kw)
+            else:
+                client = ResilientPSClient.for_server(ps, w, **retry_kw)
+            step = make_train_step(models[w], self.loss, tx,
+                                   self.features_col, self.label_col)
+            run_window = make_window_runner(step)
+            overlap = self.commit_overlap
+            exchange = None
+            pending: list = [None]
+            if overlap:
+                # one-deep double buffer: window n's exchange runs here
+                # while the device computes window n+1 (+1 staleness)
+                exchange = ThreadPoolExecutor(
+                    max_workers=1,
+                    thread_name_prefix=f"dkt-ps-exchange-{w}")
+
+            def drain_exchange():
+                fut, pending[0] = pending[0], None
+                return fut.result() if fut is not None else None
+
+            wire_bytes = raw_bytes = 0
+            try:
+                state = TrainState.create(
+                    models[w], variables, tx, device=self.device,
+                    rng=rng_stream(self.seed + 1, w, device=self.device))
+                residual = (tree_map(np.zeros_like, center)
+                            if codec is not None else None)
+                pulled = client.pull()
+                for epoch in range(self.num_epoch):
+                    shard, rows = epoch_shard(epoch, w)
+                    stacked = (None if shard is None else
+                               _stack_batches(shard, self.batch_size, cols))
+                    if stacked is None:
+                        # too few rows for this worker's batch: never
+                        # trained, recorded
+                        with accum_lock:
+                            skipped_rows_per_epoch[epoch] += (
+                                len(shard) if shard is not None
+                                else rows // num_workers)
+                        raise ValueError(
+                            f"worker {w}: not enough batches per "
+                            f"worker for one communication window "
+                            f"({window}) in any segment")
+                    n_batches = len(next(iter(stacked.values())))
+                    seg_rounds = n_batches // window
+                    with accum_lock:
+                        dropped_per_epoch[epoch] += (
+                            n_batches - seg_rounds * window)
+                    if seg_rounds == 0:
+                        raise ValueError(
+                            f"worker {w}: not enough batches per "
+                            f"worker for one communication window "
+                            f"({window}) in any segment")
+                    for r in range(seg_rounds):
+                        t_round = telemetry.now()
+                        batches = {
+                            k: torch.from_numpy(
+                                v[r * window:(r + 1) * window]).to(
+                                    self.device)
+                            for k, v in stacked.items()}
+                        round_ctx[0], round_ctx[1] = epoch, r
+                        attempts = 0  # compute-level retry budget
+                        # a retried window starts from the pre-round
+                        # optimizer state, step, model state and stream
+                        base = (_snapshot_state(state)
+                                if self.worker_retries else None)
+                        while True:
+                            try:
+                                if self.fault_injector is not None:
+                                    self.fault_injector(w, epoch, r)
+                                convert.copy_from_flax(state.params,
+                                                       pulled, heads)
+                                start = {n: p.detach().clone()
+                                         for n, p in state.params.items()}
+                                state, metrics = run_window(state, batches)
+                                if rule.payload_kind == "params":
+                                    tree = convert.params_tree(
+                                        {n: p.detach() for n, p
+                                         in state.params.items()}, heads)
+                                else:
+                                    tree = convert.params_tree(
+                                        rule.normalize_delta(
+                                            {n: p.detach() - start[n]
+                                             for n, p
+                                             in state.params.items()},
+                                            window), heads)
+                                # one copy to the host for the payload
+                                # and the window's losses
+                                host = serialization.to_host(
+                                    {"payload": tree,
+                                     "loss": metrics["loss"]})
+                                payload = host["payload"]
+                                if codec is not None:
+                                    # error feedback: fold in what the
+                                    # wire left out so far; retries
+                                    # inside the client resend these
+                                    # bytes under one seq
+                                    total = tree_map(np.add, payload,
+                                                     residual)
+                                    if sharded_socket:
+                                        encoded, applied = (
+                                            codec.round_trip_shards(
+                                                total, shard_plan))
+                                        enc_len = sum(len(d)
+                                                      for d in encoded)
+                                    else:
+                                        encoded, applied = (
+                                            codec.round_trip(total))
+                                        enc_len = len(encoded)
+                                    commit_args = (
+                                        encoded if socket_arm else applied,
+                                        None)
+                                    residual = tree_map(np.subtract,
+                                                        total, applied)
+                                    wire_bytes += enc_len
+                                    raw_bytes += raw_nbytes(payload)
+                                else:
+                                    commit_args = (
+                                        payload,
+                                        payload if rule.pull_uses_local
+                                        else None)
+                                if overlap:
+                                    got = drain_exchange()
+                                    if got is not None:
+                                        pulled = got
+                                    pending[0] = exchange.submit(
+                                        client.commit, *commit_args)
+                                else:
+                                    pulled = client.commit(*commit_args)
+                                break
+                            except PSRetryExhausted:
+                                # the network budget died inside the
+                                # client; a recompute cannot revive it
+                                raise
+                            except Exception:
+                                attempts += 1
+                                if attempts > self.worker_retries:
+                                    raise
+                                retry_records.append((w, epoch, r))
+                                telemetry.instant("worker_retry", worker=w,
+                                                  epoch=epoch, round=r)
+                                _restore_state(state, base)
+                                if overlap:
+                                    drain_exchange()
+                                pulled = client.pull()
+                        round_records.append(
+                            (w, epoch, float(np.mean(host["loss"]))))
+                        telemetry.complete("worker_round", t_round,
+                                           worker=w, epoch=epoch, round=r)
+                if overlap:
+                    # the last window's exchange must land before the
+                    # clean finish
+                    drain_exchange()
+                client.done()
+                client.close()
+            except BaseException as e:  # handled by the join below
+                note_death(w)
+                failures.append((w, e))
+                flight_recorder.record("worker_death", worker=w,
+                                       error=repr(e))
+            finally:
+                if exchange is not None:
+                    exchange.shutdown(wait=False)
+                if codec is not None:
+                    wire_total.inc(wire_bytes)
+                    raw_total.inc(raw_bytes)
+                    m = telemetry.metrics()
+                    m.counter("commit_wire_bytes_total").inc(wire_bytes)
+                    m.counter("commit_raw_bytes_total").inc(raw_bytes)
+                if shard_stats is not None:
+                    skip_total.inc(shard_stats["pull_shards_skipped"])
+                    saved_total.inc(shard_stats["pull_bytes_saved"])
+
+        threads = [threading.Thread(target=worker_loop, args=(w,),
+                                    name=f"dkt-worker-{w}")
+                   for w in range(num_workers)]
+        for t in threads:
+            t.start()
+        # active failure detection: a watchdog samples the PS contact
+        # heartbeat and records workers silent beyond worker_timeout
+        detected: list[list[int]] = []
+        watcher = None
+        stop_watch = threading.Event()
+        if self.worker_timeout is not None and ps is not None:
+            for w in range(num_workers):
+                ps.register(w)
+
+            def watchdog():
+                while not stop_watch.wait(self.worker_timeout / 4):
+                    idle = sorted(i for i in ps.idle_workers(
+                        self.worker_timeout) if i < num_workers)
+                    if idle and (not detected or detected[-1] != idle):
+                        detected.append(idle)
+                        telemetry.instant("idle_workers", workers=idle)
+
+            watcher = threading.Thread(target=watchdog, daemon=True)
+            watcher.start()
+        try:
+            for t in threads:
+                t.join()
+        finally:
+            stop_watch.set()
+            if watcher is not None:
+                watcher.join()
+        if detected:
+            self._record(detected_idle_workers=detected)
+        if server is not None:
+            server.stop()
+        failures = failures.values()
+        retry_records = retry_records.values()
+        round_records = round_records.values()
+        if failures and (len(failures) > self.max_worker_failures
+                         or len(failures) == num_workers):
+            raise failures[0][1]
+        if failures:
+            # the dead workers' committed rounds stay in the center;
+            # the survivors carried the rest
+            self._record(worker_failures=[(w, repr(e))
+                                          for w, e in failures])
+        if retry_records:
+            self._record(worker_round_retries=retry_records)
+        if ps is not None and ps.num_snapshots:
+            self._record(ps_snapshots=ps.num_snapshots)
+        if codec is not None:
+            self._record(commit_wire_bytes=int(wire_total.value),
+                         commit_raw_bytes=int(raw_total.value))
+        if self.ps_shards > 1 and self.transport == "socket":
+            self._record(pull_shards_skipped=int(skip_total.value),
+                         pull_bytes_saved=int(saved_total.value))
+        self._record(slo_health=telemetry.metrics().health()["state"])
+        for _, _, loss in round_records:
+            self._record(round_loss=loss)
+        sums = np.zeros((self.num_epoch, 2))
+        for _, e, loss in round_records:
+            sums[e] += (loss, 1.0)
+        for epoch in range(self.num_epoch):
+            self._record(epoch_loss=float(sums[epoch, 0]
+                                          / max(sums[epoch, 1], 1.0)),
+                         dropped_tail_batches=int(dropped_per_epoch[epoch]))
+            if skipped_rows_per_epoch[epoch]:
+                self._record(
+                    skipped_segment_rows=int(skipped_rows_per_epoch[epoch]))
+        if ps is not None:
+            self._record(staleness=list(ps.staleness_log))
+            final_center = ps.center
+        else:
+            # external ps_address: the final center comes over the
+            # wire; the staleness log stays with the server
+            fin = PSClient(*self.ps_address, worker_id=num_workers,
+                           template=center)
+            try:
+                final_center = fin.pull()
+                fin.done()
+            finally:
+                fin.close()
+        self.parameter_server_state = ps
+        trained = {n: v.to(self.device)
+                   for n, v in convert.params_from_flax(final_center).items()}
+        self.trained_variables = {**trained, **model_state}
+        self.model.load_state_dict(self.trained_variables)
+        # free-running threads have no common epoch boundary: the final
+        # center is evaluated once
+        self._eval_epoch(self.trained_variables)
         return self.trained_variables
 
 

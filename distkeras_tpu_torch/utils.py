@@ -2,9 +2,10 @@
 parameter dicts, parameter and model-config serialization, and the
 label and batch helpers.
 
-A "tree" here is a ``dict[str, Tensor]`` (a ``state_dict``); every
-function returns a new dict of new tensors and leaves its inputs alone,
-as the JAX functions do.  Each formula keeps the reference's order of
+A "tree" here is a ``dict[str, Tensor]`` (a ``state_dict``), or a dict
+of numpy leaves on the host parameter server; every function returns a
+new dict of new values and leaves its inputs alone, as the JAX
+functions do.  Each formula keeps the reference's order of
 operations, so results agree with the JAX package's to f32 rounding.
 
 ``serialize_params`` writes the bytes of flax's ``to_bytes`` of the
@@ -41,14 +42,25 @@ def tree_zeros_like(a: Tree) -> dict:
     return {k: torch.zeros_like(x) for k, x in a.items()}
 
 
+def _float_host(x) -> bool:
+    return isinstance(x, np.ndarray) and x.dtype.kind == "f"
+
+
 def tree_axpy(alpha, x: Tree, y: Tree) -> dict:
-    """``alpha * x + y``, elementwise over matching trees."""
-    return {k: alpha * x[k] + y[k] for k in x}
+    """``alpha * x + y``, elementwise over matching trees.  Host numpy
+    leaves (the host parameter server's) take ``alpha`` as a scalar of
+    the leaf's dtype, as the JAX package's numpy path does."""
+    return {k: (x[k].dtype.type(alpha) * x[k] + y[k]
+                if _float_host(x[k]) and _float_host(y[k])
+                else alpha * x[k] + y[k]) for k in x}
 
 
 def tree_lerp(a: Tree, b: Tree, t) -> dict:
-    """``(1 - t) * a + t * b``."""
-    return {k: (1.0 - t) * a[k] + t * b[k] for k in a}
+    """``(1 - t) * a + t * b`` (numpy leaves: both weights as scalars of
+    the leaf's dtype, as in ``tree_axpy``)."""
+    return {k: (a[k].dtype.type(1.0 - t) * a[k] + a[k].dtype.type(t) * b[k]
+                if _float_host(a[k]) and _float_host(b[k])
+                else (1.0 - t) * a[k] + t * b[k]) for k in a}
 
 
 def tree_dot(a: Tree, b: Tree) -> torch.Tensor:

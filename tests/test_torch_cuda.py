@@ -9,7 +9,8 @@ the ring-hop kernels against their plain versions and a
 sequence-parallel LM step through them, and bit-equal reruns of the bf16
 forward and backward kernels (the fused forwards under both pass plans;
 the GroupNorm kernels on the one-pass route, whose routes are held
-against the plain versions at the PS path's shapes).
+against the plain versions at the PS path's shapes), and the GroupNorm
+kernels called from four host threads at once.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -333,6 +334,64 @@ def test_group_norm_one_pass_plans_fit_the_card(card, direction):
                                             direction)
         assert smem == plan.smem <= gn.SMEM_PER_BLOCK, shape
         assert clusters >= 1, shape
+
+
+def test_group_norm_kernels_from_four_threads(card):
+    """Four host threads make the first calls at once (the library and
+    the plans dropped first, so the threads race to load and plan them),
+    then run both kernels at the PS path's shapes: the library loads
+    once, every launch is counted, and every result matches the plain
+    version on the same inputs."""
+    import threading
+
+    from distkeras_tpu_torch.ops import _build
+
+    gn = _gn_inputs(GN_PATH_SHAPES[0], torch.bfloat16, 0)[0]
+    gn._library.cache_clear()
+    gn._launch_plan.cache_clear()
+    _build._loaded.pop("group_norm", None)
+    shapes = GN_PATH_SHAPES[::3]
+    cases = [_gn_inputs(shape, torch.bfloat16, i)
+             for i, shape in enumerate(shapes)]
+    want = []
+    for _, x, dy, gamma, beta, g in cases:
+        ry, rmean, rinv = gn.group_norm_fwd_reference(x, gamma, beta,
+                                                      groups=g, relu=True)
+        want.append((ry, gn.group_norm_bwd_reference(
+            x, dy, gamma, beta, rmean, rinv, groups=g, relu=True)[0],
+            rmean, rinv))
+    before = (gn.fwd_launches, gn.bwd_launches)
+    libs, errors, reps = [], [], 3
+
+    def work(t):
+        try:
+            libs.append(gn._library())
+            for _ in range(reps):
+                for (_, x, dy, gamma, beta, g), (ry, rdx, rmean, rinv) in \
+                        zip(cases, want):
+                    y, _, _ = gn.group_norm_fwd(x, gamma, beta, groups=g,
+                                                relu=True)
+                    dx, _, _ = gn.group_norm_bwd(x, dy, gamma, beta, rmean,
+                                                 rinv, groups=g, relu=True)
+                    torch.cuda.current_stream().synchronize()
+                    assert _ratio(y, ry) <= GN_TOL[torch.bfloat16]
+                    assert _ratio(dx, rdx) <= GN_TOL[torch.bfloat16]
+        except BaseException as e:  # handed to the test thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    if errors:
+        raise errors[0]
+    assert len({id(lib) for lib in libs}) == 1
+    assert libs[0] is _build._loaded["group_norm"]
+    n = 4 * reps * len(cases)
+    assert (gn.fwd_launches, gn.bwd_launches) == (before[0] + n,
+                                                  before[1] + n)
 
 
 def test_group_norm_kernel_takes_channels_last_only(card):

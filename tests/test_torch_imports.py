@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``distkeras_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, msgpack or ``distkeras_tpu``;
-importing the package loads no JAX; entry points default to CUDA and
-raise without a card instead of falling back to the CPU."""
+``chip_smoke.py``) imports JAX, flax, msgpack, ml_dtypes or
+``distkeras_tpu``; importing the package loads no JAX; entry points
+default to CUDA and raise without a card instead of falling back to the
+CPU."""
 
 import ast
 import subprocess
@@ -20,7 +21,8 @@ from distkeras_tpu_torch.models import model_config
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "distkeras_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
+             "distkeras_tpu")
 SOURCES = sorted((ROOT / "distkeras_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 CFG = model_config("transformer_lm", (64,), input_dtype="int32",
@@ -49,7 +51,14 @@ def test_import_loads_no_jax():
             "distkeras_tpu_torch.ops.fused_block, "
             "distkeras_tpu_torch.parallel.ring_attention, "
             "distkeras_tpu_torch.checkpoint, distkeras_tpu_torch.evaluators, "
-            "distkeras_tpu_torch.ops.metrics;"
+            "distkeras_tpu_torch.ops.metrics, distkeras_tpu_torch.telemetry, "
+            "distkeras_tpu_torch.flight_recorder, "
+            "distkeras_tpu_torch.analysis.racecheck, "
+            "distkeras_tpu_torch.parallel.transport, "
+            "distkeras_tpu_torch.parallel.compression, "
+            "distkeras_tpu_torch.parallel.host_ps, "
+            "distkeras_tpu_torch.parallel.sharded_ps, "
+            "distkeras_tpu_torch.parallel.faults;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -195,8 +195,9 @@ def test_elastic_trainers_derive_alpha():
 
 
 @pytest.mark.parametrize("kw", [
-    {"fidelity": "host"}, {"fidelity": "mesh"}, {"model_parallel": 2},
-    {"transport": "socket"}, {"ps_shards": 2}, {"compression": "int8"},
+    {"fidelity": "mesh"}, {"model_parallel": 2},
+    {"ps_replicas": [("127.0.0.1", 1)]}, {"ps_elastic": True},
+    {"ps_groups": [(None, [0, 1])]}, {"comm_codec": "int8"},
     {"comm_dtype": "bfloat16"}, {"attrib_every": 1}])
 def test_unported_arms_raise(kw):
     cfg = model_config("mlp", (4,), num_classes=2, hidden=(4,))
