@@ -152,7 +152,38 @@ Phases, in order; any failure exits nonzero and prints no result:
    commit's round trip over loopback TCP with the 102 MB center, the
    host arm's round time beside phase 5's emulated round, and the
    device's idle share over an epoch under ``torch.profiler``;
-11. print the kernel table as one JSON line, then the device line last.
+11. out-of-core data and the baseline families, in a temporary directory
+   removed at the end: (a) phase 5's model and round (ResNet-50,
+   ``norm="group_pallas"``, faithful ADAG at ``lr_law="scale"``, 4
+   workers, window 2, batch 32) over ``imagenet_synth`` rows written as
+   npz shards (4 of 256 rows and a runt of 100): one shard against the
+   same rows in memory from one start, bit-equal results and round
+   losses; the 4 shards and the runt for one epoch with
+   ``DKT_SEGMENT_PREFETCH`` 1 against 0, bit-equal, the runt's 100 rows
+   in ``skipped_segment_rows``, each run's ``segment_stall_s``; the same
+   shards through ``fidelity="host"``, ``transport="inprocess"``, 2
+   workers, the server's clock equal to the commits made; in every run
+   exactly 53 launches of #5 and of #6 a worker step, all one-pass; (b)
+   BASELINE row 5: ``criteo_synth`` at its published widths (13 dense,
+   26 categorical) written as 8 CSV shards of 32,768 rows and a held-out
+   one; the C and Python parse lanes equal column for column on one
+   shard (MB/s of each); ``from_csv_shards(...).map(pipeline)`` with the
+   pipeline (assemble the dense columns, ``MinMaxTransformer``, 26
+   ``HashBucketTransformer``s of 10,000 buckets, ``AssembleTransformer``)
+   fitted on shard 0; ``wide_deep`` at its module defaults through
+   DOWNPOUR (4 workers, window 2, batch 512, adam 1e-3) for 2 epochs:
+   every shard parsed, scaled and bucketed by the native library's C
+   lane (its call counters exactly), the epoch loss falling, and
+   ``ModelPredictor`` with ``AccuracyEvaluator`` on the held-out shard
+   above 0.6; ETL rows/s, ``segment_stall_s`` and the round time; (c)
+   BASELINE row 4: ``bilstm`` at its module defaults (vocab 20,000,
+   embed and hidden 128) on ``imdb_synth(16384, seq_len=256)``: the
+   cuDNN recurrence against the plain time loop on one batch (f32, one
+   row with a 0 inside), logits and gradients within ``TOL_LSTM`` of
+   their rms; DynSGD (4 workers, window 2, batch 64, adam 1e-3) for 2
+   epochs, finite and falling losses, every recurrence on cuDNN; the
+   round time and tokens/s;
+12. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -3685,6 +3716,420 @@ def _host_ps_phase(seed, torch, np, gn, emulated_round_ms):
     return res, launches
 
 
+# ---- phase 11: out-of-core data and the baseline families -------------
+
+# (a) phase 5's model and round (ResNet-50, norm="group_pallas", #5-#6,
+# faithful ADAG at lr_law="scale", 4 workers, window 2, batch 32) over
+# imagenet_synth rows written as npz shards: OOC_SHARDS of OOC_SHARD_ROWS
+# (one round each) and a runt of OOC_RUNT, too small for a batch a worker
+OOC_SHARD_ROWS, OOC_SHARDS, OOC_RUNT = 256, 4, 100
+OOC_HOST_WORKERS = 2
+# (b) BASELINE row 5, the Criteo Wide & Deep: criteo_synth at its
+# published widths (13 dense, 26 categorical; raw categories drawn from
+# 1000 a feature, criteo_synth's default) in CSV shards, the ETL's
+# 10,000 hash buckets a feature, wide_deep at its module defaults
+CRITEO = dict(num_dense=13, num_categorical=26, vocab_size=10000,
+              embed_dim=16, deep=(256, 128, 64), num_classes=2)
+CRITEO_RAW_VOCAB = 1000
+CRITEO_SHARDS, CRITEO_ROWS = 8, 32768
+CRITEO_TRAIN = dict(num_workers=4, communication_window=2, batch_size=512,
+                    worker_optimizer="adam", learning_rate=1e-3,
+                    num_epoch=2, loss="sparse_categorical_crossentropy")
+CRITEO_ACC = 0.6          # tests/test_baseline_configs.py's bar
+# (c) BASELINE row 4, the IMDB BiLSTM at its module defaults
+IMDB = dict(vocab_size=20000, embed_dim=128, hidden_dim=128, num_classes=2)
+IMDB_ROWS, IMDB_T = 16384, 256
+IMDB_TRAIN = dict(num_workers=4, communication_window=2, batch_size=64,
+                  worker_optimizer="adam", learning_rate=1e-3, num_epoch=2,
+                  loss="sparse_categorical_crossentropy")
+# the cuDNN recurrence against the plain time loop, f32 without TF32:
+# logits and every gradient within TOL_LSTM of their rms (summation
+# order over 256 steps of a 128-wide cell)
+TOL_LSTM = 1e-4
+
+
+def _ooc_runs(seed, torch, np, gn, tmp):
+    """Phase 11 (a): npz shards through the PS trainer on #5-#6."""
+    from distkeras_tpu_torch import ADAG
+    from distkeras_tpu_torch.data import ShardedDataset, datasets
+    from distkeras_tpu_torch.models import model_config
+
+    cfg = model_config("resnet", (IMAGE, IMAGE, 3), **RESNET)
+    w, k = PS["num_workers"], PS["communication_window"]
+    t0 = time.monotonic()
+    full = datasets.imagenet_synth(OOC_SHARDS * OOC_SHARD_ROWS + OOC_RUNT,
+                                   image_size=IMAGE,
+                                   num_classes=RESNET["num_classes"],
+                                   seed=seed)
+    paths = full.to_npz_shards(str(Path(tmp) / "img"), OOC_SHARD_ROWS)
+    one = full.take(OOC_SHARD_ROWS)
+    del full
+    print(f"ooc: {len(paths)} npz shards ({OOC_SHARDS} x {OOC_SHARD_ROWS} "
+          f"+ {OOC_RUNT} rows, {Path(paths[0]).stat().st_size / 1e6:.1f} MB "
+          f"a full shard) written in {time.monotonic() - t0:.1f} s")
+    res: dict = {"launches": {"group_norm_fwd": 0, "group_norm_bwd": 0},
+                 "routes": {r: 0 for r in gn.route_launches}}
+
+    def trainer(**kw):
+        return ADAG(cfg, seed=seed, learning_rate=PS_LR, lr_law="scale",
+                    device="cuda", **{**PS, **kw})
+
+    first = trainer()
+    per_step = sum(_resnet_shapes(first.model, PS["batch_size"],
+                                  torch)[0].values())
+    start = {n: v.clone() for n, v in first.model.state_dict().items()}
+    del first
+
+    def run(name, data, windows_of, **kw):
+        t = trainer(**kw)
+        torch.cuda.synchronize()
+        _reset_gn(gn)
+        out = t.train(data, initial_variables=start)
+        torch.cuda.synchronize()
+        launches, routes = _gn_counts(gn), dict(gn.route_launches)
+        want = per_step * k * windows_of(t)
+        hist = t.history
+        print(f"ooc {name}: rounds={len(hist['round_loss'])} round_loss="
+              f"{np.round(hist['round_loss'], 4).tolist()} "
+              f"skipped_segment_rows={hist.get('skipped_segment_rows')} "
+              f"segment_stall_s={hist.get('segment_stall_s')} GroupNorm "
+              f"launches {launches} ({per_step} a step)")
+        if any(n != want for n in launches.values()) or routes != {
+                "fwd_one_pass": want, "fwd_two_pass": 0,
+                "bwd_one_pass": want, "bwd_two_pass": 0}:
+            raise SystemExit(f"ooc {name}: GroupNorm launches {launches} "
+                             f"({routes}); expected {want} each, one-pass")
+        if not np.isfinite(hist["round_loss"]).all():
+            raise SystemExit(f"ooc {name}: losses not finite")
+        for key in launches:
+            res["launches"][key] += launches[key]
+        for key in routes:
+            res["routes"][key] += routes[key]
+        return ({n: v.detach().clone() for n, v in out.items()},
+                list(hist["round_loss"]), dict(hist), t)
+
+    def same(a, b):
+        return a[1] == b[1] and all(torch.equal(a[0][n], b[0][n])
+                                    for n in a[0])
+
+    def emulated(t):
+        return w * len(t.history["round_loss"])
+
+    # one shard against the same rows in memory, from one start
+    mem = run(f"in-memory {OOC_SHARD_ROWS}", one, emulated, num_epoch=2)
+    ooc = run(f"one shard {OOC_SHARD_ROWS}", ShardedDataset([paths[0]]),
+              emulated, num_epoch=2)
+    res["one_shard_bit_equal"] = same(mem, ooc)
+    print(f"ooc: one shard bit-equal to the same rows in memory "
+          f"{res['one_shard_bit_equal']}")
+    if not res["one_shard_bit_equal"]:
+        raise SystemExit("ooc: one npz shard is not bit-equal to the same "
+                         "rows in memory")
+    del mem, ooc
+
+    # four shards and the runt, prefetch on against off
+    import os
+
+    runs = {}
+    for depth in ("1", "0"):
+        os.environ["DKT_SEGMENT_PREFETCH"] = depth
+        try:
+            runs[depth] = run(f"shards prefetch {depth}",
+                              ShardedDataset(paths), emulated, num_epoch=1)
+        finally:
+            os.environ.pop("DKT_SEGMENT_PREFETCH", None)
+        hist = runs[depth][2]
+        if hist["skipped_segment_rows"] != [OOC_RUNT] \
+                or len(hist["round_loss"]) != OOC_SHARDS:
+            raise SystemExit(f"ooc: prefetch {depth}: skipped "
+                             f"{hist.get('skipped_segment_rows')}, rounds "
+                             f"{len(hist['round_loss'])}; expected "
+                             f"[{OOC_RUNT}] and {OOC_SHARDS}")
+    res["prefetch_bit_equal"] = same(runs["1"], runs["0"])
+    res["segment_stall_s"] = {f"prefetch_{d}": runs[d][2]["segment_stall_s"]
+                              for d in runs}
+    res["epoch_time_s"] = {f"prefetch_{d}": runs[d][3].epoch_time_s
+                           for d in runs}
+    print(f"ooc: prefetch 1 bit-equal to 0 {res['prefetch_bit_equal']}; "
+          f"segment_stall_s {res['segment_stall_s']}, epoch_time_s "
+          f"{res['epoch_time_s']}")
+    if not res["prefetch_bit_equal"]:
+        raise SystemExit("ooc: prefetch on and off are not bit-equal")
+    del runs
+    torch.cuda.empty_cache()
+
+    # the same shards through the host arm, 2 worker threads
+    def host_windows(t):
+        return len(t.history["round_loss"])
+
+    host = run(f"host inprocess W={OOC_HOST_WORKERS}", ShardedDataset(paths),
+               host_windows, num_epoch=1, fidelity="host",
+               transport="inprocess", num_workers=OOC_HOST_WORKERS)
+    ps = host[3].parameter_server_state
+    commits = len(host[1])
+    print(f"ooc host: server clock {ps.num_commits} for {commits} commits "
+          f"made, training_time_s {host[3].training_time:.3f}")
+    if ps.num_commits != commits or commits == 0:
+        raise SystemExit(f"ooc host: clock {ps.num_commits} against "
+                         f"{commits} commits")
+    res["host"] = {"commits": commits, "clock": ps.num_commits,
+                   "training_time_s": host[3].training_time}
+    del host, ps
+    torch.cuda.empty_cache()
+    return res
+
+
+def _criteo_shards(n_shards, rows, seed, np, datasets):
+    """``criteo_synth(n_shards * rows, seed=seed)`` (one draw, so every
+    shard shares its label rule) as the bytes of ``n_shards`` CSV files:
+    its dense features, labels and category ids (its first two draws,
+    redone to keep the ids as integers), dense as fixed ``0012.3456``,
+    each category as ``cat_0123``, built as byte matrices (no per-field
+    Python)."""
+    n_d, n_c = CRITEO["num_dense"], CRITEO["num_categorical"]
+    total = n_shards * rows
+    ds = datasets.criteo_synth(total, num_dense=n_d, num_categorical=n_c,
+                               vocab_size=CRITEO_RAW_VOCAB, seed=seed)
+    rng = np.random.default_rng(seed)
+    rng.lognormal(0.0, 1.0, size=(total, n_d))
+    cats = rng.integers(0, CRITEO_RAW_VOCAB, size=(total, n_c))
+
+    def digits(n, width):
+        pows = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+        return (n[..., None] // pows % 10 + 48).astype(np.uint8)
+
+    def sep(shape, char):
+        return np.full(shape + (1,), ord(char), np.uint8)
+
+    header = ",".join([f"d{j}" for j in range(n_d)]
+                      + [f"c{j}" for j in range(n_c)] + ["label"]) + "\n"
+    prefix = np.frombuffer(b"cat_", np.uint8)
+    out = []
+    for s in range(n_shards):
+        part = slice(s * rows, (s + 1) * rows)
+        q = np.round(np.clip(ds["dense"][part].astype(np.float64), 0,
+                             9999.9999) * 1e4).astype(np.int64)
+        c = cats[part]
+        body = np.concatenate([
+            np.concatenate([digits(q // 10000, 4), sep(q.shape, "."),
+                            digits(q % 10000, 4), sep(q.shape, ",")],
+                           -1).reshape(rows, -1),
+            np.concatenate([np.broadcast_to(prefix, c.shape + (4,)),
+                            digits(c, 4), sep(c.shape, ",")],
+                           -1).reshape(rows, -1),
+            (ds["label"][part].astype(np.uint8) + 48)[:, None],
+            np.full((rows, 1), ord("\n"), np.uint8)], -1)
+        out.append(header.encode() + body.tobytes())
+    return out
+
+
+def _criteo_etl():
+    from distkeras_tpu_torch.data import (AssembleTransformer,
+                                          HashBucketTransformer,
+                                          MinMaxTransformer, Pipeline)
+
+    n_d, n_c = CRITEO["num_dense"], CRITEO["num_categorical"]
+    return Pipeline(
+        [AssembleTransformer([f"d{j}" for j in range(n_d)], "dense"),
+         MinMaxTransformer("dense")]
+        + [HashBucketTransformer(f"c{j}", CRITEO["vocab_size"])
+           for j in range(n_c)]
+        + [AssembleTransformer(["dense"] + [f"c{j}_bucket"
+                                            for j in range(n_c)])])
+
+
+def _criteo_run(seed, torch, np, tmp):
+    """Phase 11 (b): BASELINE row 5 out of core."""
+    from distkeras_tpu_torch import DOWNPOUR, native
+    from distkeras_tpu_torch.data import Dataset, datasets
+    from distkeras_tpu_torch.evaluators import AccuracyEvaluator
+    from distkeras_tpu_torch.models import model_config
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    if not native.available():
+        raise SystemExit(f"native library: {native.why_unavailable()}")
+    t0 = time.monotonic()
+    paths = []
+    for s, text in enumerate(_criteo_shards(CRITEO_SHARDS + 1, CRITEO_ROWS,
+                                            seed, np, datasets)):
+        p = Path(tmp) / f"criteo-{s:05d}.csv"
+        p.write_bytes(text)
+        paths.append(str(p))
+    train_paths, holdout = paths[:-1], paths[-1]
+    shard_mb = Path(paths[0]).stat().st_size / 1e6
+    print(f"criteo: {CRITEO_SHARDS} + 1 CSV shards of {CRITEO_ROWS} rows "
+          f"({shard_mb:.2f} MB each) written in {time.monotonic() - t0:.1f} s")
+
+    # the two parse lanes on one shard, column for column, and their rates
+    t0 = time.monotonic()
+    c_lane = Dataset.from_csv(train_paths[0])
+    c_s = time.monotonic() - t0
+    available = native.available
+    native.available = lambda: False
+    try:
+        t0 = time.monotonic()
+        py_lane = Dataset.from_csv(train_paths[0])
+        py_s = time.monotonic() - t0
+    finally:
+        native.available = available
+    lanes_equal = c_lane.column_names == py_lane.column_names and all(
+        c_lane[k].dtype == py_lane[k].dtype
+        and np.array_equal(c_lane[k], py_lane[k])
+        for k in c_lane.column_names)
+    res = {"parse_mb_s": {"c": shard_mb / c_s, "python": shard_mb / py_s},
+           "lanes_equal": lanes_equal, "shard_mb": shard_mb}
+    print(f"criteo: C lane {res['parse_mb_s']['c']:.1f} MB/s, Python lane "
+          f"{res['parse_mb_s']['python']:.1f} MB/s; lanes equal column for "
+          f"column {lanes_equal}")
+    if not lanes_equal:
+        raise SystemExit("criteo: the C and Python CSV lanes disagree")
+
+    base = Dataset.from_csv_shards(train_paths)
+    etl = _criteo_etl()
+    etl.fit(base.load_shard(0))
+    sd = base.map(etl.transform)
+    t0 = time.monotonic()
+    sd.load_shard(1)
+    res["etl_rows_s"] = CRITEO_ROWS / (time.monotonic() - t0)
+    print(f"criteo: parse + ETL of one shard {res['etl_rows_s']:.0f} rows/s")
+
+    cfg = model_config("wide_deep", (CRITEO["num_dense"]
+                                     + CRITEO["num_categorical"],),
+                       **CRITEO)
+    t = DOWNPOUR(cfg, seed=seed, device="cuda", **CRITEO_TRAIN)
+    native.reset_counts()
+    t.train(sd)
+    torch.cuda.synchronize()
+    calls = dict(native.calls)
+    loads = CRITEO_SHARDS * CRITEO_TRAIN["num_epoch"]
+    hist = t.history
+    rounds = len(hist["round_loss"]) // CRITEO_TRAIN["num_epoch"]
+    res.update(native_calls=calls, epoch_loss=hist["epoch_loss"],
+               segment_stall_s=hist["segment_stall_s"],
+               epoch_time_s=t.epoch_time_s, rounds_per_epoch=rounds,
+               round_ms=t.epoch_time_s[-1] / rounds * 1e3)
+    print(f"criteo: DOWNPOUR {rounds} rounds an epoch, epoch_loss "
+          f"{hist['epoch_loss']}, segment_stall_s {hist['segment_stall_s']}, "
+          f"round_ms {res['round_ms']:.3f} (epoch 2's wall over its rounds), "
+          f"C-lane calls {calls}")
+    want = {"parse_csv": loads, "affine_scale": loads,
+            "fnv1a_bucket": loads * CRITEO["num_categorical"],
+            "dense_scatter": 0}
+    if calls != want:
+        raise SystemExit(f"criteo: C-lane calls {calls}; expected {want} "
+                         f"(every shard parsed and bucketed in C)")
+    losses = hist["epoch_loss"]
+    if not np.isfinite(hist["round_loss"]).all() or not losses[1] < losses[0]:
+        raise SystemExit(f"criteo: losses not finite or not falling {losses}")
+
+    held = etl.transform(Dataset.from_csv(holdout))
+    t0 = time.monotonic()
+    scored = ModelPredictor(t.model, t.trained_variables, output="class",
+                            batch_size=4096).predict(held)
+    res["predict_rows_s"] = len(held) / (time.monotonic() - t0)
+    res["holdout_accuracy"] = AccuracyEvaluator("prediction",
+                                                "label").evaluate(scored)
+    print(f"criteo: held-out accuracy {res['holdout_accuracy']:.4f} "
+          f"(bar {CRITEO_ACC}), predicted {res['predict_rows_s']:.0f} rows/s")
+    if not res["holdout_accuracy"] > CRITEO_ACC:
+        raise SystemExit(f"criteo: held-out accuracy "
+                         f"{res['holdout_accuracy']} not above {CRITEO_ACC}")
+    del t
+    torch.cuda.empty_cache()
+    return res
+
+
+def _imdb_run(seed, torch, np):
+    """Phase 11 (c): BASELINE row 4."""
+    from distkeras_tpu_torch import DynSGD, build_model
+    from distkeras_tpu_torch.data import datasets
+    from distkeras_tpu_torch.models import lstm, model_config
+
+    cfg = model_config("bilstm", (IMDB_T,), input_dtype="int32", **IMDB)
+    data = datasets.imdb_synth(IMDB_ROWS, seq_len=IMDB_T,
+                               vocab_size=IMDB["vocab_size"], seed=seed)
+    res: dict = {}
+
+    # the cuDNN recurrence against the plain loop on one batch
+    torch.manual_seed(seed)
+    model = build_model(cfg)
+    tok = np.array(data["features"][:IMDB_TRAIN["batch_size"]])
+    tok[1, 10] = 0                       # a 0 inside the sequence
+    tok = torch.from_numpy(tok).to("cuda")
+    params = dict(model.named_parameters())
+    cot = torch.randn(len(tok), IMDB["num_classes"], device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(seed))
+    got = {}
+    for route in ("fused", "loop"):
+        model.recurrence = route
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = model(tok)
+        grads = torch.autograd.grad((out * cot).sum(), list(params.values()))
+        torch.cuda.synchronize()
+        got[route] = ([out] + list(grads), time.monotonic() - t0)
+    worst = max(((a - b).abs().max() / b.float().pow(2).mean().sqrt()
+                 .clamp(min=1e-30)).item()
+                for a, b in zip(got["fused"][0], got["loop"][0]))
+    res["fused_vs_loop"] = worst
+    res["step_ms"] = {r: got[r][1] * 1e3 for r in got}
+    print(f"imdb: cuDNN recurrence against the plain loop, worst |diff| / "
+          f"rms over logits and {len(params)} gradients {worst:.3e} (limit "
+          f"{TOL_LSTM}); forward+backward {res['step_ms']['fused']:.2f} ms "
+          f"fused, {res['step_ms']['loop']:.2f} ms loop (first calls)")
+    if not worst <= TOL_LSTM:
+        raise SystemExit(f"imdb: cuDNN recurrence off the loop by {worst}")
+    del model, got
+
+    for route in lstm.recurrence_calls:
+        lstm.recurrence_calls[route] = 0
+    t = DynSGD(cfg, seed=seed, device="cuda", **IMDB_TRAIN)
+    t.train(data)
+    torch.cuda.synchronize()
+    hist = t.history
+    w, k, b = (IMDB_TRAIN[x] for x in ("num_workers", "communication_window",
+                                       "batch_size"))
+    rounds = len(hist["round_loss"]) // IMDB_TRAIN["num_epoch"]
+    tokens = rounds * w * k * b * IMDB_T
+    res.update(epoch_loss=hist["epoch_loss"], rounds_per_epoch=rounds,
+               round_ms=t.epoch_time_s[-1] / rounds * 1e3,
+               tokens_per_s=tokens / t.epoch_time_s[-1],
+               recurrence_calls=dict(lstm.recurrence_calls))
+    print(f"imdb: DynSGD {rounds} rounds an epoch, epoch_loss "
+          f"{hist['epoch_loss']}, round_ms {res['round_ms']:.3f}, "
+          f"tokens/s {res['tokens_per_s']:.0f} (epoch 2), recurrence calls "
+          f"{res['recurrence_calls']}")
+    losses = hist["epoch_loss"]
+    if not np.isfinite(hist["round_loss"]).all() or not losses[1] < losses[0]:
+        raise SystemExit(f"imdb: losses not finite or not falling {losses}")
+    steps = 2 * rounds * w * k * IMDB_TRAIN["num_epoch"]
+    if res["recurrence_calls"] != {"fused": steps, "loop": 0}:
+        raise SystemExit(f"imdb: recurrence calls {res['recurrence_calls']}"
+                         f"; expected {steps} fused")
+    del t
+    torch.cuda.empty_cache()
+    return res
+
+
+def _data_phase(seed, torch, np, gn):
+    """Phase 11: out-of-core data and the baseline families; see the
+    module docstring.  Returns the numbers and run (a)'s GroupNorm
+    launches and routes."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["ooc"] = _ooc_runs(seed, torch, np, gn, tmp)
+        for p in Path(tmp).glob("img-*.npz"):
+            p.unlink()
+        res["criteo"] = _criteo_run(seed, torch, np, tmp)
+    res["imdb"] = _imdb_run(seed, torch, np)
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"data: phase took {res['phase_s']:.1f} s")
+    return res, res["ooc"]["launches"], res["ooc"]["routes"]
+
+
 def _gn_summary(timing, mix, pre):
     """The ``kernels`` line's fields of a GroupNorm kernel: times
     launch-weighted over the path's (shape, ReLU) mix, the two-pass
@@ -3932,7 +4377,11 @@ def main() -> int:
                                        ps["round_ms"])
     torch.cuda.empty_cache()
 
-    # ---- 11. kernel table --------------------------------------------
+    # ---- 11. out-of-core data and the baseline families -------------
+    data, data_counts, data_routes = _data_phase(args.seed, torch, np, gn)
+    torch.cuda.empty_cache()
+
+    # ---- 12. kernel table --------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts), and over each
     # path's own: the serving prefills and the training shape; the
@@ -3990,9 +4439,10 @@ def main() -> int:
                 "averaging_train": family_counts["averaging_train"],
                 "ensemble_train": family_counts["ensemble_train"],
                 "ckpt_ps": ckpt_counts["ckpt_ps"],
-                "host_ps": host_counts}
+                "host_ps": host_counts, "ooc_ps": data_counts}
     gn_routes = {"ps_train": ps["group_norm_routes"], **family_routes,
-                 "host_ps": host["socket"]["group_norm_routes"]}
+                 "host_ps": host["socket"]["group_norm_routes"],
+                 "ooc_ps": data_routes}
     for name, pre, out, line in (("group_norm_fwd", "fwd", "y", 56),
                                  ("group_norm_bwd", "bwd", "dx", 83)):
         kernels.append({
@@ -4115,7 +4565,8 @@ def main() -> int:
             "hop_timing": [{"kernel": k[0], "hop": k[1], **v}
                            for k, v in hop_timing.items()],
             "seq_train": seq, "trainer_family": family,
-            "checkpoint": ckpt, "host_ps": host, "kernels": kernels},
+            "checkpoint": ckpt, "host_ps": host, "data": data,
+            "kernels": kernels},
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ rounds, and ``EnsembleTrainer``/``AveragingTrainer`` train members on
 disjoint shards.  The trainers checkpoint and resume in the JAX
 package's file format (``checkpoint.py``), either package reading the
 other's files, and ``predictors.ModelPredictor`` and ``evaluators``
-score a ``Dataset``.  Attention, GroupNorm and the fused ResNet
+score a ``Dataset``.  Every trainer also streams out-of-core npz and
+CSV shards (``data.ShardedDataset``), through the ETL transformers on
+the native columnar library (``native``), which feed the Wide & Deep
+and BiLSTM families.  Attention, GroupNorm and the fused ResNet
 bottleneck run hand-written CUDA kernels, forward and backward
 (``ops/attention.py``, ``ops/group_norm.py``, ``ops/fused_block.py``,
 ``csrc/``).  Entry points run on ``cuda`` unless

@@ -21,12 +21,16 @@ its parameter's dtype.  ``params_to_flax(state_dict, num_heads)`` is
 the reverse (f32 numpy leaves), so trained parameters can be compared
 with the JAX package's.
 
-The MLP, ConvNet and ResNet keep flax's module names, so their trees
-map leaf by leaf: a path ``A/B/kernel`` becomes ``A.B.weight`` (conv
-HWIO -> OIHW, Dense ``[in, out]`` -> ``[out, in]``); ``bias`` and a
-norm's ``scale`` keep their names and values.  Both GroupNorm
-spellings map as they nest: ``AdaptiveGroupNorm_i/GroupNorm_0/scale``
-(``norm="group"``) and ``AdaptiveGroupNorm_i/scale``
+The MLP, ConvNet, ResNet, Wide & Deep and BiLSTM keep flax's module
+names, so their trees map leaf by leaf: a path ``A/B/kernel`` becomes
+``A.B.weight`` (conv HWIO -> OIHW, Dense ``[in, out]`` -> ``[out,
+in]``, the LSTM cells' gate kernels alike); ``bias``, a norm's
+``scale`` and an embedding table's ``embedding`` keep their names and
+values.  An LM tree is told apart by its ``pos_embed``/``lm_head``
+(``_is_lm_tree``), not by ``Embed_0``, which the BiLSTM's has too.
+Both GroupNorm spellings map as they nest:
+``AdaptiveGroupNorm_i/GroupNorm_0/scale`` (``norm="group"``) and
+``AdaptiveGroupNorm_i/scale``
 (``norm="group_pallas"``).  The fused bottleneck's raw ``[C_in, C_out]``
 kernels (``conv1``, ``convd``, ``conv3``) keep flax's layout, the one its
 kernels read, so they copy unchanged both ways.
@@ -86,13 +90,20 @@ def _flat_from_flax(tree: Mapping, prefix: str = "") -> dict:
     return sd
 
 
+def _is_lm_tree(tree: Mapping) -> bool:
+    """A ``TransformerLM`` tree: it has the LM's own top-level keys
+    (``pos_embed``, ``lm_head``).  ``Embed_0`` alone does not tell: the
+    BiLSTM's tree has it too."""
+    return "pos_embed" in tree or "lm_head" in tree
+
+
 def params_from_flax(tree: Mapping) -> dict:
     """flax params (numpy leaves) -> the port's ``state_dict``: a
-    ``TransformerLM`` tree (it has ``Embed_0``), else an MLP, ConvNet or
-    ResNet tree mapped leaf by leaf.  Raises on an LM tree it does not
-    know (MoE, stacked ``scan_blocks`` layers)."""
+    ``TransformerLM`` tree (``_is_lm_tree``), else an MLP, ConvNet,
+    ResNet, Wide & Deep or BiLSTM tree mapped leaf by leaf.  Raises on
+    an LM tree it does not know (MoE, stacked ``scan_blocks`` layers)."""
     tree = tree.get("params", tree)
-    if "Embed_0" not in tree:
+    if not _is_lm_tree(tree):
         return _flat_from_flax(tree)
     sd = {"embed.weight": _t(tree["Embed_0"]["embedding"]),
           "pos_embed.weight": _t(tree["pos_embed"]["embedding"])}

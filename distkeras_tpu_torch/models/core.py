@@ -73,9 +73,11 @@ def build_model(config: Mapping[str, Any], device=None):
     dev = resolve_device(device)
     # the family table fills as the model modules import
     import distkeras_tpu_torch.models.convnet  # noqa: F401
+    import distkeras_tpu_torch.models.lstm  # noqa: F401
     import distkeras_tpu_torch.models.mlp  # noqa: F401
     import distkeras_tpu_torch.models.resnet  # noqa: F401
     import distkeras_tpu_torch.models.transformer  # noqa: F401
+    import distkeras_tpu_torch.models.widedeep  # noqa: F401
 
     family = config["family"]
     if family not in MODEL_REGISTRY:

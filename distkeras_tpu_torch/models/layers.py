@@ -1,4 +1,4 @@
-"""Layers shared by the port's MLP, ConvNet and ResNet, spelled as flax
+"""Layers shared by the port's model families, spelled as flax
 spells them: parameters stay f32 and each layer casts them (and its
 input) to its compute dtype at every use, as flax's ``param_dtype`` /
 ``dtype`` pair does, so autograd through the cast hands back f32
@@ -142,13 +142,33 @@ def max_pool_same(x, window: int, stride: int):
     return F.max_pool2d(x, window, stride)
 
 
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a table ``embedding [num, features]`` (flax's
+    name and layout), looked up in ``dtype`` (the table cast first, as
+    flax promotes it); initialized N(0, 1/features), flax's
+    ``default_embed_init``."""
+
+    flax_init = {"embedding": "embed"}
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, idx):
+        return F.embedding(idx, self.embedding.to(self.dtype))
+
+
 class FlaxInit(nn.Module):
     """A model whose parameters come from one draw of flax's default
     initializers (``init_params``).  A module holding a norm ``scale``
     sets ``zero_scale = True`` where flax's ``scale_init`` is zeros; one
     with other leaves maps their names to ``"lecun_in"`` (a raw ``[in,
-    out]`` kernel, fan-in ``in``) or ``"ones"`` in ``flax_init``; any
-    other leaf is zeros."""
+    out]`` kernel, fan-in ``in``), ``"ones"``, ``"embed"`` (flax's
+    embedding init, N(0, 1/features)) or ``"orthogonal"`` (an orthogonal
+    matrix, flax's ``orthogonal()``, the LSTM's recurrent kernels) in
+    ``flax_init``; any other leaf is zeros."""
 
     def _init_from_flax(self):
         self.load_state_dict(self.init_params(), assign=True)
@@ -174,6 +194,13 @@ class FlaxInit(nn.Module):
                                                    fan_in=p.shape[0])
                 elif named.get(leaf) == "ones":
                     out[pre + leaf] = torch.ones(p.shape)
+                elif named.get(leaf) == "embed":
+                    out[pre + leaf] = torch.randn(
+                        tuple(p.shape), generator=generator) \
+                        * p.shape[-1] ** -0.5
+                elif named.get(leaf) == "orthogonal":
+                    out[pre + leaf] = nn.init.orthogonal_(
+                        torch.empty(tuple(p.shape)), generator=generator)
                 elif leaf == "weight":
                     out[pre + leaf] = lecun_normal(tuple(p.shape), generator)
                 elif leaf == "scale" and not getattr(mod, "zero_scale",

@@ -5,13 +5,16 @@ family and the member trainers (``EnsembleTrainer``,
 ``AveragingTrainer``).
 
 The same front door as the JAX package: a model config (or
-``ModelSpec``), a loss and an optimizer by name, a ``Dataset``;
-``train()`` returns the trained variables and leaves
-``history["epoch_loss"]``/``["segment_stall_s"]`` and
-``training_time``.  The port's trained variables are a ``state_dict``
-of f32 parameters (``convert.params_to_flax`` maps them to the JAX
-package's tree); ``initial_variables`` takes one, e.g. from
-``convert.params_from_flax``.
+``ModelSpec``), a loss and an optimizer by name, a ``Dataset`` or an
+out-of-core ``ShardedDataset`` (npz or CSV shard files, mapped through
+ETL or not; ``data/sharded.py``), streamed one shard at a time, the
+next one loaded ahead on a thread (``DKT_SEGMENT_PREFETCH``, default
+1); ``train()`` returns the trained variables and leaves
+``history["epoch_loss"]``, ``["segment_stall_s"]`` (the seconds the
+loop waited for its segments) and ``training_time``.  The port's
+trained variables are a ``state_dict`` of f32 parameters
+(``convert.params_to_flax`` maps them to the JAX package's tree);
+``initial_variables`` takes one, e.g. from ``convert.params_from_flax``.
 
 Training runs on ``device`` (default ``cuda``; raises without a card
 unless ``device="cpu"``).
@@ -19,9 +22,11 @@ unless ``device="cpu"``).
 The PS family (``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``,
 ``EAMSGD``) trains on the emulated tiers (``fidelity="faithful"`` or
 ``"fast"``, ``commit_overlap``, ``lr_law``), following the JAX loop's
-data path: each epoch shuffled with ``seed + 17 * epoch``,
-``repartition(num_workers)``, each worker's rows stacked into batches,
-``[W, window, B, ...]`` per round, one commit order per round from
+data path: each epoch's plan from ``seed + 17 * epoch`` (the shuffled
+set, or the shard files in a permuted order, rows shuffled per shard),
+each segment ``repartition(num_workers)``, each worker's rows stacked
+into batches, ``[W, window, B, ...]`` per round, rounds numbered across
+the epoch's segments, one commit order per round from
 ``commit_orders`` (seeded from ``seed + 2``).
 
 Every training state carries its own random stream (``TrainState.rng``,
@@ -48,6 +53,8 @@ and profiling are not ported yet: see ROADMAP.md §1.
 from __future__ import annotations
 
 import copy
+import os
+import queue
 import threading
 import time
 from pathlib import Path
@@ -59,6 +66,7 @@ import torch
 from distkeras_tpu_torch import (checkpoint, convert, serialization,
                                  telemetry)
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.data.sharded import ShardedDataset
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models.core import ModelSpec
 from distkeras_tpu_torch.parallel import ps_emulator
@@ -110,12 +118,136 @@ def _stack_batches(shard: Dataset, batch_size: int,
     return out
 
 
-def _epoch_segments(dataset: Dataset, seed: int):
-    """One epoch as in-memory ``Dataset`` segments: the whole set,
-    shuffled with ``seed``."""
-    if not isinstance(dataset, Dataset):
-        raise _unsupported(f"training on a {type(dataset).__name__}", 5)
-    return [dataset.shuffle(seed=seed)]
+def _prefetch_depth() -> int:
+    """Segments to load ahead of the consumer (0 disables), from
+    ``DKT_SEGMENT_PREFETCH`` (default 1), the JAX package's variable:
+    prefetch never changes results, only timing."""
+    return int(os.environ.get("DKT_SEGMENT_PREFETCH", "1"))
+
+
+def _prefetch_iter(it, depth: int | None = None):
+    """Iterate ``it`` on a daemon thread, keeping up to ``depth`` items
+    built ahead of the consumer: segment IO (read, parse, shuffle)
+    overlaps the training on the previous segment.  Order-preserving;
+    the iterator's exceptions raise again at the consumer's ``next``;
+    closing the generator cancels the feeder."""
+    if depth is None:
+        depth = _prefetch_depth()
+    if depth <= 0:
+        yield from it
+        return
+    done = object()
+    q: queue.Queue = queue.Queue()
+    # build tickets: the feeder may hold ``depth`` items beyond the one
+    # the consumer is on; released as the consumer moves on
+    slots = threading.Semaphore(depth + 1)
+    # set when the consumer abandons the generator mid-epoch: the feeder
+    # exits instead of blocking in ``slots.acquire()`` holding segments
+    cancelled = threading.Event()
+
+    def feed():
+        try:
+            while True:
+                slots.acquire()
+                if cancelled.is_set():
+                    return
+                try:
+                    item = next(it)
+                except StopIteration:
+                    q.put(done)
+                    return
+                q.put((item,))
+        except BaseException as exc:  # raised on the consumer's side
+            q.put(exc)
+            q.put(done)
+
+    threading.Thread(target=feed, daemon=True,
+                     name="dkt-segment-prefetch").start()
+    try:
+        while True:
+            got = q.get()
+            if got is done:
+                return
+            if isinstance(got, BaseException):
+                raise got
+            yield got[0]
+            slots.release()
+    finally:
+        cancelled.set()
+        slots.release()  # wake a feeder blocked on its ticket
+
+
+def _epoch_segments(dataset, seed: int, stall: list | None = None):
+    """One epoch as in-memory ``Dataset`` segments: an in-memory set
+    gives one, the whole set shuffled with ``seed``; a
+    ``ShardedDataset`` streams its shard files in the seed-permuted
+    order, rows shuffled per shard, loaded ahead by ``_prefetch_iter``.
+    ``stall`` (a one-element list) adds up the seconds the consumer
+    waited for segments."""
+    if isinstance(dataset, ShardedDataset):
+        it = _prefetch_iter(dataset.epoch_segments(seed))
+    else:
+        it = iter([dataset.shuffle(seed=seed)])
+    if stall is None:
+        return it
+
+    def timed():
+        while True:
+            t0 = telemetry.now()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            stall[0] += telemetry.now() - t0
+            yield item
+    return timed()
+
+
+class _SegmentPrefetch:
+    """One-deep background segment load for the plan-driven PS loop,
+    which decides skips from metadata before it touches a file.
+    ``queue(key, load)`` starts ``load()`` on a daemon thread;
+    ``get(key, load)`` joins and returns it, or loads synchronously on a
+    key mismatch (a wrong lookahead costs the overlap, never the
+    result).  Load errors raise again in ``get``."""
+
+    def __init__(self):
+        self._key = None
+        self._thread: threading.Thread | None = None
+        self._box: dict | None = None
+
+    def queue(self, key, load):
+        box: dict = {}
+
+        def run():
+            try:
+                box["value"] = load()
+            except BaseException as exc:
+                box["error"] = exc
+
+        t = threading.Thread(target=run, daemon=True,
+                             name="dkt-segment-prefetch")
+        t.start()
+        self._key, self._thread, self._box = key, t, box
+
+    def get(self, key, load):
+        if self._thread is not None and self._key == key:
+            self._thread.join()
+            box = self._box
+            self._key = self._thread = self._box = None
+            if "error" in box:
+                raise box["error"]
+            return box["value"]
+        return load()
+
+
+def _epoch_segment_loaders(dataset, seed: int):
+    """``_epoch_segments`` with the data deferred: ``(rows, load)``
+    pairs, so a resuming PS trainer skips whole shard files it has
+    consumed from their metadata alone."""
+    if isinstance(dataset, ShardedDataset):
+        return dataset.epoch_segment_loaders(seed)
+    return iter([(len(dataset), lambda: dataset.shuffle(seed=seed))])
 
 
 class Trainer:
@@ -355,10 +487,15 @@ class SingleTrainer(Trainer):
         fetched = []
         for epoch in range(int(cursor.get("epoch", 0)), self.num_epoch):
             losses = []
-            for segment in _epoch_segments(dataset, self.seed + epoch):
+            stall = [0.0]
+            for segment in _epoch_segments(dataset, self.seed + epoch,
+                                           stall):
                 stacked = _stack_batches(segment, global_batch,
                                          self._columns())
                 if stacked is None:
+                    # a shard smaller than one global batch: dropped as
+                    # any tail remainder (the check below keeps a whole
+                    # epoch from passing so)
                     continue
                 n = len(next(iter(stacked.values())))
                 for lo in range(0, n, self.SCAN_CHUNK):
@@ -374,9 +511,8 @@ class SingleTrainer(Trainer):
             if not losses:
                 raise ValueError(f"dataset smaller than one batch "
                                  f"({global_batch} rows)")
-            # in memory, the segments never keep the step waiting
             self._record(epoch_loss=float(np.concatenate(losses).mean()),
-                         segment_stall_s=0.0)
+                         segment_stall_s=round(stall[0], 4))
             self._eval_epoch(state.variables())
             self._maybe_save(state, {"epoch": epoch + 1})
         self.step_metrics = {k: np.concatenate([m[k] for m in fetched])
@@ -476,8 +612,11 @@ class DistributedTrainer(Trainer):
     worker's final model state in ``worker_model_states``; history:
     ``round_loss``, ``staleness`` (per round, each worker's commit
     position), ``dropped_tail_batches``, ``epoch_loss``,
-    ``segment_stall_s``.  ``epoch_time_s``: each epoch's wall seconds,
-    from its shuffle to its last round's metrics on the host.
+    ``segment_stall_s``, and ``skipped_segment_rows`` for each shard too
+    small to give every worker a batch.  The next segment loads on a
+    thread while the current one trains.  ``epoch_time_s``: each
+    epoch's wall seconds, from its plan to its last round's metrics on
+    the host.
 
     ``fidelity="host"`` runs the reference's own design: free-running
     worker threads (each with its own copy of the model, all on the
@@ -507,13 +646,21 @@ class DistributedTrainer(Trainer):
 
     With ``checkpoint_dir``, the state is saved at every epoch's end and,
     with ``checkpoint_every_rounds=r``, after every r-th round inside an
-    epoch (a save due at an epoch's last round is the epoch-end save).
+    epoch, rounds counted across the epoch's segments (a save due at a
+    segment's last round is made there where a later segment of the
+    epoch has rounds, read off the plan's row counts, and one due at the
+    epoch's last round is the epoch-end save).  The JAX trainer makes
+    such a save at the next segment's start, after that segment's
+    ``dropped_tail_batches`` record, which its resume then records
+    again; the port's saves are at the same cursors, and its resumes
+    repeat the uninterrupted history.
     The file holds the center, the commit clock and every worker's state
     on a leading worker axis; the port's entry adds each worker's stream
     and the number of commit orders drawn, so a resume skips that many
     draws of ``commit_orders()`` (a replaced sequence resumes too).  A
-    mid-epoch resume skips the epoch's done rounds and takes their losses
-    from the restored history.  ``commit_overlap`` cannot checkpoint: its
+    mid-epoch resume skips the epoch's done rounds, and the shard files
+    they consumed unread, and takes their losses from the restored
+    history.  ``commit_overlap`` cannot checkpoint: its
     center is always one round behind."""
 
     #: effective per-round lr (configured lr x family amplification)
@@ -764,7 +911,14 @@ class DistributedTrainer(Trainer):
         pend, pend_perm, pend_valid = None, list(range(num_workers)), False
         self.epoch_time_s = []
 
+        def predicted_rounds(rows: int) -> int:
+            # repartition + _stack_batches + // window, from a row count
+            if rows < num_workers:
+                return 0
+            return ((rows // num_workers) // self.batch_size) // window
+
         for epoch in range(start_epoch, self.num_epoch):
+            t_epoch = time.monotonic()
             first_round = start_round if epoch == start_epoch else 0
             # a mid-epoch resume: the done rounds' losses are in the
             # restored history, and their records are not made again
@@ -788,38 +942,82 @@ class DistributedTrainer(Trainer):
                 self._maybe_save({"ps": ps_state, "workers": workers,
                                   "orders": drawn}, point)
 
-            # the stall is the time the epoch's segments take to load
-            # (for in-memory data, the shuffle)
-            t_get = time.monotonic()
-            segments = _epoch_segments(dataset, self.seed + 17 * epoch)
-            seg_stall = time.monotonic() - t_get
-            rounds = 0
-            # ``_epoch_segments`` gives one segment, so ``r`` numbers the
-            # epoch's rounds, as the cursor does
-            for segment in segments:
-                if len(segment) < num_workers:
-                    if first_round == 0:
-                        self._record(skipped_segment_rows=len(segment))
+            # rounds are numbered across the epoch's segments (one for
+            # in-memory data, one per shard file otherwise), as the
+            # checkpoint cursor counts them
+            round_base = 0
+            plan = list(_epoch_segment_loaders(dataset,
+                                               self.seed + 17 * epoch))
+            # whether a segment after j has rounds: a save due at a
+            # segment's last round is made only where the epoch goes on
+            # (the epoch-end save stands for it otherwise)
+            later = [predicted_rounds(rows) for rows, _ in plan]
+            goes_on = [any(later[j + 1:]) for j in range(len(plan))]
+            prefetch = _SegmentPrefetch()
+            seg_stall = 0.0
+
+            def next_loadable(j: int, rb: int) -> int | None:
+                # this loop's skip rules replayed on metadata: the
+                # segment after j that will load (a wrong answer costs
+                # only the overlap)
+                rb += predicted_rounds(plan[j][0])
+                for k in range(j + 1, len(plan)):
+                    hint = predicted_rounds(plan[k][0])
+                    if rb + hint <= first_round and hint > 0:
+                        rb += hint
+                        continue
+                    if plan[k][0] < num_workers:
+                        continue
+                    return k
+                return None
+
+            for seg_j, (seg_rows, load_segment) in enumerate(plan):
+                sr_hint = predicted_rounds(seg_rows)
+                if round_base + sr_hint <= first_round and sr_hint > 0:
+                    # every round of this segment predates the resume
+                    # point: the file is not read
+                    round_base += sr_hint
                     continue
+                # a segment entered before a mid-epoch stop has its
+                # records in the restored history
+                record_this_segment = round_base >= first_round
+                if seg_rows < num_workers:
+                    # too few rows to give every worker one: dropped,
+                    # recorded, the file not read
+                    if record_this_segment:
+                        self._record(skipped_segment_rows=seg_rows)
+                    continue
+                t_get = telemetry.now()
+                segment = prefetch.get(seg_j, load_segment)
+                seg_stall += telemetry.now() - t_get
+                if _prefetch_depth() > 0:
+                    nxt = next_loadable(seg_j, round_base)
+                    if nxt is not None:
+                        prefetch.queue(nxt, plan[nxt][1])
                 per_worker = [_stack_batches(shard, self.batch_size, cols)
                               for shard in segment.repartition(num_workers)]
                 if any(p is None for p in per_worker):
-                    if first_round == 0:
-                        self._record(skipped_segment_rows=len(segment))
+                    # smaller than one batch a worker
+                    if record_this_segment:
+                        self._record(skipped_segment_rows=seg_rows)
                     continue
                 n_batches = min(len(next(iter(p.values())))
                                 for p in per_worker)
                 seg_rounds = n_batches // window
-                if first_round == 0:
+                if record_this_segment:
                     # tail batches that do not fill a window are dropped,
                     # and counted
                     self._record(dropped_tail_batches=n_batches
                                  - seg_rounds * window)
-                for r in range(first_round, seg_rounds):
+                for r_local in range(seg_rounds):
+                    r = round_base + r_local
+                    if r < first_round:
+                        continue  # a resume: the round is in the file
                     perm = next(orders)
                     drawn += 1
                     batch = {k: torch.from_numpy(np.stack(
-                                 [p[k][r * window:(r + 1) * window]
+                                 [p[k][r_local * window:
+                                       (r_local + 1) * window]
                                   for p in per_worker])).to(self.device)
                              for k in cols}
                     if overlap:
@@ -836,24 +1034,27 @@ class DistributedTrainer(Trainer):
                         drain(pending)
                     pending = metrics
                     every = self.checkpoint_every_rounds
-                    # the epoch's last round saves at the epoch's end
-                    if every and (r + 1) % every == 0 \
-                            and r + 1 < seg_rounds:
+                    if every and (r + 1) % every == 0 and (
+                            r_local + 1 < seg_rounds or goes_on[seg_j]):
+                        # at a segment's end the save comes before the
+                        # next segments' records, so a resume from it
+                        # makes each record once
                         save_point({"epoch": epoch, "round": r + 1})
-                rounds += seg_rounds
-            if rounds == 0:
+                round_base += seg_rounds
+            if round_base == 0:
                 raise ValueError(
                     f"not enough batches per worker for one "
                     f"communication window ({window}) in any segment")
-            drain(pending)
-            pending = None
+            if pending is not None:
+                drain(pending)
+                pending = None
             if overlap and pend_valid:
                 # the pipeline runs one commit behind: fold the final
                 # pending round in so the returned center has every commit
                 ps_state = ps_emulator.flush_pending(
                     rule, ps_state, pend, pend_perm, num_workers)
                 pend_valid = False
-            self.epoch_time_s.append(time.monotonic() - t_get)
+            self.epoch_time_s.append(time.monotonic() - t_epoch)
             self._record(epoch_loss=float(np.mean(epoch_losses)),
                          segment_stall_s=round(seg_stall, 4))
             self._eval_epoch({**ps_state.center, **workers[0].model_state})
@@ -958,13 +1159,18 @@ class DistributedTrainer(Trainer):
         skip_total = telemetry.Counter()    # version-delta pull savings
         saved_total = telemetry.Counter()   # (sharded socket arm)
 
-        # the epoch's shuffle and repartition, built once by the first
-        # worker to reach it (others wait on its event); a failed build
-        # poisons the entry so waiters raise instead of hanging; entries
-        # go once every live worker has fetched them
-        shard_lock = racecheck.lock("trainers.shard")
-        shard_cache: dict[int, tuple] = {}  # epoch -> (shards|exc,
-        #                                     fetched, event, ready)
+        # each segment's load, shuffle and repartition, keyed (epoch,
+        # segment slot): one segment for in-memory data, one per shard
+        # file otherwise.  The first worker to reach a segment builds it
+        # (others wait on its event) and starts the next one's build in
+        # the background; a failed build poisons its entry, so every
+        # worker raises instead of hanging; an entry goes once every live
+        # worker has fetched it, so host memory holds the segments in
+        # flight.  RLock: ``segment_shard`` -> ``epoch_plan`` nests.
+        shard_lock = racecheck.rlock("trainers.shard")
+        # entry: (shards | None | exception, fetched, event, ready)
+        shard_cache: dict[tuple[int, int], tuple] = {}
+        plan_cache: dict[int, list] = {}
         dead_workers: set[int] = set()
         dropped_per_epoch = [0] * self.num_epoch
         skipped_rows_per_epoch = [0] * self.num_epoch
@@ -972,22 +1178,61 @@ class DistributedTrainer(Trainer):
 
         def _sweep_shard_cache():
             # caller holds shard_lock
-            for e in [e for e, (_, fetched, _, ready)
-                      in shard_cache.items()
-                      if ready and fetched | dead_workers
-                      >= set(range(num_workers))]:
-                del shard_cache[e]
+            for key in [key for key, (_, fetched, _, ready)
+                        in shard_cache.items()
+                        if ready and fetched | dead_workers
+                        >= set(range(num_workers))]:
+                del shard_cache[key]
 
-        def epoch_shard(epoch: int, w: int):
-            """``(worker w's rows or None, the segment's rows)``: None
-            when the segment cannot give every worker a row."""
+        def epoch_plan(epoch: int) -> list:
+            # (rows, load) pairs: every worker walks the same order
+            with shard_lock:
+                if epoch not in plan_cache:
+                    plan_cache[epoch] = list(_epoch_segment_loaders(
+                        dataset, self.seed + 17 * epoch))
+                return plan_cache[epoch]
+
+        def build_segment(key: tuple[int, int], event: threading.Event):
+            """Load, shuffle and repartition segment ``key`` and publish
+            it; a failure poisons the entry before the event fires."""
+            epoch, slot = key
+            shards: object = None
+            try:
+                rows, load = epoch_plan(epoch)[slot]
+                shards = (load().repartition(num_workers)
+                          if rows >= num_workers else None)
+            except BaseException as exc:
+                shards = exc
+                raise
+            finally:
+                with shard_lock:
+                    shard_cache[key] = (shards, set(), event, True)
+                event.set()
+
+        def prefetch_segment(epoch: int, slot: int):
+            """The one-ahead build, through the same publish path."""
+            key = (epoch, slot)
+            with shard_lock:
+                if key in shard_cache:
+                    return
+                event = threading.Event()
+                shard_cache[key] = (None, set(), event, False)
+            try:
+                build_segment(key, event)
+            except BaseException:
+                pass  # the poisoned entry raises in every requester
+
+        def segment_shard(epoch: int, slot: int, w: int):
+            """Worker ``w``'s rows of segment ``slot``, or None when the
+            segment cannot give every worker a row."""
+            key = (epoch, slot)
             while True:
                 build = False
                 with shard_lock:
-                    entry = shard_cache.get(epoch)
+                    entry = shard_cache.get(key)
                     if entry is None:
                         event = threading.Event()
-                        shard_cache[epoch] = (None, set(), event, False)
+                        shard_cache[key] = (None, set(), event, False)
                         build = True
                     else:
                         shards, fetched, event, ready = entry
@@ -996,28 +1241,21 @@ class DistributedTrainer(Trainer):
                             _sweep_shard_cache()
                             if isinstance(shards, BaseException):
                                 raise RuntimeError(
-                                    f"epoch {epoch}'s segment failed to "
-                                    "build in another worker") from shards
-                            rows, parts = shards
-                            return (None if parts is None
-                                    else parts[w]), rows
-                if not build:
+                                    f"segment (epoch {epoch}, slot "
+                                    f"{slot}) failed to build in "
+                                    "another worker") from shards
+                            return None if shards is None else shards[w]
+                if build:
+                    build_segment(key, event)
+                    nxt = slot + 1
+                    if (_prefetch_depth() > 0
+                            and nxt < len(epoch_plan(epoch))):
+                        threading.Thread(
+                            target=prefetch_segment, args=(epoch, nxt),
+                            daemon=True,
+                            name="dkt-segment-prefetch").start()
+                else:
                     event.wait()
-                    continue
-                shards: object = None
-                try:
-                    (segment,) = _epoch_segments(dataset,
-                                                 self.seed + 17 * epoch)
-                    shards = (len(segment),
-                              segment.repartition(num_workers)
-                              if len(segment) >= num_workers else None)
-                except BaseException as exc:
-                    shards = exc
-                    raise
-                finally:
-                    with shard_lock:
-                        shard_cache[epoch] = (shards, set(), event, True)
-                    event.set()
 
         def note_death(w: int):
             with shard_lock:
@@ -1076,126 +1314,129 @@ class DistributedTrainer(Trainer):
                             if codec is not None else None)
                 pulled = client.pull()
                 for epoch in range(self.num_epoch):
-                    shard, rows = epoch_shard(epoch, w)
-                    stacked = (None if shard is None else
-                               _stack_batches(shard, self.batch_size, cols))
-                    if stacked is None:
-                        # too few rows for this worker's batch: never
-                        # trained, recorded
+                    epoch_rounds = 0  # the round's number across segments
+                    for slot in range(len(epoch_plan(epoch))):
+                        shard = segment_shard(epoch, slot, w)
+                        stacked = (None if shard is None else
+                                   _stack_batches(shard, self.batch_size,
+                                                  cols))
+                        if stacked is None:
+                            # too few rows for this worker's batch: never
+                            # trained, recorded (this worker's share)
+                            rows = epoch_plan(epoch)[slot][0]
+                            with accum_lock:
+                                skipped_rows_per_epoch[epoch] += (
+                                    len(shard) if shard is not None
+                                    else rows // num_workers)
+                            continue
+                        n_batches = len(next(iter(stacked.values())))
+                        seg_rounds = n_batches // window
                         with accum_lock:
-                            skipped_rows_per_epoch[epoch] += (
-                                len(shard) if shard is not None
-                                else rows // num_workers)
-                        raise ValueError(
-                            f"worker {w}: not enough batches per "
-                            f"worker for one communication window "
-                            f"({window}) in any segment")
-                    n_batches = len(next(iter(stacked.values())))
-                    seg_rounds = n_batches // window
-                    with accum_lock:
-                        dropped_per_epoch[epoch] += (
-                            n_batches - seg_rounds * window)
-                    if seg_rounds == 0:
-                        raise ValueError(
-                            f"worker {w}: not enough batches per "
-                            f"worker for one communication window "
-                            f"({window}) in any segment")
-                    for r in range(seg_rounds):
-                        t_round = telemetry.now()
-                        batches = {
-                            k: torch.from_numpy(
-                                v[r * window:(r + 1) * window]).to(
-                                    self.device)
-                            for k, v in stacked.items()}
-                        round_ctx[0], round_ctx[1] = epoch, r
-                        attempts = 0  # compute-level retry budget
-                        # a retried window starts from the pre-round
-                        # optimizer state, step, model state and stream
-                        base = (_snapshot_state(state)
-                                if self.worker_retries else None)
-                        while True:
-                            try:
-                                if self.fault_injector is not None:
-                                    self.fault_injector(w, epoch, r)
-                                convert.copy_from_flax(state.params,
-                                                       pulled, heads)
-                                start = {n: p.detach().clone()
-                                         for n, p in state.params.items()}
-                                state, metrics = run_window(state, batches)
-                                if rule.payload_kind == "params":
-                                    tree = convert.params_tree(
-                                        {n: p.detach() for n, p
-                                         in state.params.items()}, heads)
-                                else:
-                                    tree = convert.params_tree(
-                                        rule.normalize_delta(
-                                            {n: p.detach() - start[n]
-                                             for n, p
-                                             in state.params.items()},
-                                            window), heads)
-                                # one copy to the host for the payload
-                                # and the window's losses
-                                host = serialization.to_host(
-                                    {"payload": tree,
-                                     "loss": metrics["loss"]})
-                                payload = host["payload"]
-                                if codec is not None:
-                                    # error feedback: fold in what the
-                                    # wire left out so far; retries
-                                    # inside the client resend these
-                                    # bytes under one seq
-                                    total = tree_map(np.add, payload,
-                                                     residual)
-                                    if sharded_socket:
-                                        encoded, applied = (
-                                            codec.round_trip_shards(
-                                                total, shard_plan))
-                                        enc_len = sum(len(d)
-                                                      for d in encoded)
+                            dropped_per_epoch[epoch] += (
+                                n_batches - seg_rounds * window)
+                        for r_local in range(seg_rounds):
+                            r = epoch_rounds
+                            epoch_rounds += 1
+                            t_round = telemetry.now()
+                            batches = {
+                                k: torch.from_numpy(
+                                    v[r_local * window:(r_local + 1) * window]
+                                ).to(self.device)
+                                for k, v in stacked.items()}
+                            round_ctx[0], round_ctx[1] = epoch, r
+                            attempts = 0  # compute-level retry budget
+                            # a retried window starts from the pre-round
+                            # optimizer state, step, model state and stream
+                            base = (_snapshot_state(state)
+                                    if self.worker_retries else None)
+                            while True:
+                                try:
+                                    if self.fault_injector is not None:
+                                        self.fault_injector(w, epoch, r)
+                                    convert.copy_from_flax(state.params,
+                                                           pulled, heads)
+                                    start = {n: p.detach().clone()
+                                             for n, p in state.params.items()}
+                                    state, metrics = run_window(state, batches)
+                                    if rule.payload_kind == "params":
+                                        tree = convert.params_tree(
+                                            {n: p.detach() for n, p
+                                             in state.params.items()}, heads)
                                     else:
-                                        encoded, applied = (
-                                            codec.round_trip(total))
-                                        enc_len = len(encoded)
-                                    commit_args = (
-                                        encoded if socket_arm else applied,
-                                        None)
-                                    residual = tree_map(np.subtract,
-                                                        total, applied)
-                                    wire_bytes += enc_len
-                                    raw_bytes += raw_nbytes(payload)
-                                else:
-                                    commit_args = (
-                                        payload,
-                                        payload if rule.pull_uses_local
-                                        else None)
-                                if overlap:
-                                    got = drain_exchange()
-                                    if got is not None:
-                                        pulled = got
-                                    pending[0] = exchange.submit(
-                                        client.commit, *commit_args)
-                                else:
-                                    pulled = client.commit(*commit_args)
-                                break
-                            except PSRetryExhausted:
-                                # the network budget died inside the
-                                # client; a recompute cannot revive it
-                                raise
-                            except Exception:
-                                attempts += 1
-                                if attempts > self.worker_retries:
+                                        tree = convert.params_tree(
+                                            rule.normalize_delta(
+                                                {n: p.detach() - start[n]
+                                                 for n, p
+                                                 in state.params.items()},
+                                                window), heads)
+                                    # one copy to the host for the payload
+                                    # and the window's losses
+                                    host = serialization.to_host(
+                                        {"payload": tree,
+                                         "loss": metrics["loss"]})
+                                    payload = host["payload"]
+                                    if codec is not None:
+                                        # error feedback: fold in what the
+                                        # wire left out so far; retries
+                                        # inside the client resend these
+                                        # bytes under one seq
+                                        total = tree_map(np.add, payload,
+                                                         residual)
+                                        if sharded_socket:
+                                            encoded, applied = (
+                                                codec.round_trip_shards(
+                                                    total, shard_plan))
+                                            enc_len = sum(len(d)
+                                                          for d in encoded)
+                                        else:
+                                            encoded, applied = (
+                                                codec.round_trip(total))
+                                            enc_len = len(encoded)
+                                        commit_args = (
+                                            encoded if socket_arm else applied,
+                                            None)
+                                        residual = tree_map(np.subtract,
+                                                            total, applied)
+                                        wire_bytes += enc_len
+                                        raw_bytes += raw_nbytes(payload)
+                                    else:
+                                        commit_args = (
+                                            payload,
+                                            payload if rule.pull_uses_local
+                                            else None)
+                                    if overlap:
+                                        got = drain_exchange()
+                                        if got is not None:
+                                            pulled = got
+                                        pending[0] = exchange.submit(
+                                            client.commit, *commit_args)
+                                    else:
+                                        pulled = client.commit(*commit_args)
+                                    break
+                                except PSRetryExhausted:
+                                    # the network budget died inside the
+                                    # client; a recompute cannot revive it
                                     raise
-                                retry_records.append((w, epoch, r))
-                                telemetry.instant("worker_retry", worker=w,
-                                                  epoch=epoch, round=r)
-                                _restore_state(state, base)
-                                if overlap:
-                                    drain_exchange()
-                                pulled = client.pull()
-                        round_records.append(
-                            (w, epoch, float(np.mean(host["loss"]))))
-                        telemetry.complete("worker_round", t_round,
-                                           worker=w, epoch=epoch, round=r)
+                                except Exception:
+                                    attempts += 1
+                                    if attempts > self.worker_retries:
+                                        raise
+                                    retry_records.append((w, epoch, r))
+                                    telemetry.instant("worker_retry", worker=w,
+                                                      epoch=epoch, round=r)
+                                    _restore_state(state, base)
+                                    if overlap:
+                                        drain_exchange()
+                                    pulled = client.pull()
+                            round_records.append(
+                                (w, epoch, float(np.mean(host["loss"]))))
+                            telemetry.complete("worker_round", t_round,
+                                               worker=w, epoch=epoch, round=r)
+                    if epoch_rounds == 0:
+                        raise ValueError(
+                            f"worker {w}: not enough batches per "
+                            f"worker for one communication window "
+                            f"({window}) in any segment")
                 if overlap:
                     # the last window's exchange must land before the
                     # clean finish
@@ -1467,9 +1708,9 @@ class _MemberParallelTrainer(Trainer):
         run_chunk = make_window_runner(step)
         cols = self._columns()
         # partitioned once, after one shuffle: member i sees only its own
-        # 1/n of the rows for the whole run
-        member_shards = _epoch_segments(dataset, self.seed)[0] \
-            .repartition(n)
+        # 1/n of the rows for the whole run (an in-memory ``Dataset``, as
+        # in the JAX package: a ``ShardedDataset`` has no ``shuffle``)
+        member_shards = dataset.shuffle(seed=self.seed).repartition(n)
         for epoch in range(self.num_epoch):
             per_member = [
                 _stack_batches(s.shuffle(seed=self.seed + 13 * epoch + i),

@@ -9,8 +9,10 @@ the ring-hop kernels against their plain versions and a
 sequence-parallel LM step through them, and bit-equal reruns of the bf16
 forward and backward kernels (the fused forwards under both pass plans;
 the GroupNorm kernels on the one-pass route, whose routes are held
-against the plain versions at the PS path's shapes), and the GroupNorm
-kernels called from four host threads at once.
+against the plain versions at the PS path's shapes), the GroupNorm
+kernels called from four host threads at once, the BiLSTM's cuDNN
+recurrence against its plain time loop, and the native columnar
+library's C lane on the card's machine.
 They skip without a card (the kernels have no CPU mode).  The file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -834,3 +836,56 @@ def test_ring_step_runs_the_hop_kernels(card, dtype, tol):
             continue
         scale = max(want[name].norm().item(), 1e-3 * total.item())
         assert (g - want[name]).norm().item() <= tol * scale, name
+
+
+def test_bilstm_cudnn_recurrence_matches_the_loop(card):
+    """The BiLSTM's fused route (torch's LSTM op, cuDNN on the card)
+    against the plain time loop, f32 without TF32: logits and every
+    gradient within 1e-4 of their rms, on rows with ragged lengths, an
+    interior 0 and one all padding."""
+    from distkeras_tpu_torch.models import lstm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = build_model(model_config("bilstm", (64,), input_dtype="int32",
+                                     vocab_size=1000, embed_dim=32,
+                                     hidden_dim=32))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, 1000, size=(8, 64))
+    tok[0, 40:] = 0
+    tok[1, 10] = 0
+    tok[2] = 0
+    tok = torch.from_numpy(tok).cuda()
+    params = dict(model.named_parameters())
+    cot = torch.randn(8, 2, device="cuda")
+    outs = {}
+    for route in ("fused", "loop"):
+        model.recurrence = route
+        lstm.recurrence_calls[route] = 0
+        out = model(tok)
+        grads = torch.autograd.grad((out * cot).sum(), list(params.values()))
+        outs[route] = [out] + list(grads)
+        assert lstm.recurrence_calls[route] == 2
+    for got, want in zip(outs["fused"], outs["loop"]):
+        rms = want.float().pow(2).mean().sqrt().item()
+        assert (got - want).abs().max().item() <= 1e-4 * rms + 1e-12
+
+
+def test_native_lane_counters_beside_the_card(card, tmp_path):
+    """The native columnar library builds on the card's machine and its
+    C lane parses and buckets: every counter it should move moves."""
+    from distkeras_tpu_torch import native
+    from distkeras_tpu_torch.data import (Dataset, HashBucketTransformer,
+                                          MinMaxTransformer)
+
+    assert native.available(), native.why_unavailable()
+    p = tmp_path / "c.csv"
+    p.write_text("d,c,label\n" + "".join(
+        f"{i * 0.5},cat_{i % 7},{i % 2}\n" for i in range(100)))
+    native.reset_counts()
+    ds = Dataset.from_csv(str(p))
+    ds = HashBucketTransformer("c", 13).transform(
+        MinMaxTransformer("d").fit_transform(ds))
+    assert native.calls == {"fnv1a_bucket": 1, "affine_scale": 1,
+                            "parse_csv": 1, "dense_scatter": 0}
+    assert ds["c_bucket"].dtype == np.int32 and len(ds) == 100
