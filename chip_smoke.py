@@ -183,7 +183,30 @@ Phases, in order; any failure exits nonzero and prints no result:
    their rms; DynSGD (4 workers, window 2, batch 64, adam 1e-3) for 2
    epochs, finite and falling losses, every recurrence on cuDNN; the
    round time and tokens/s;
-12. print the kernel table as one JSON line, then the device line last.
+12. the serving arms on phase 3's model and weights: (a) phase 3's
+   traffic on ``kv_cache_dtype="int8"``: tokens equal int8
+   ``generate()``, 12 launches of #1 per admission, the KV pools' bytes
+   against bf16's; (b) the same traffic paged (``kv_pages=256``,
+   ``page_size=128``): tokens equal phase 3's bit for bit, each step's
+   time against the envelope engine's; a swap-preemption drill on a
+   20-page pool with two priorities token-equal to the envelope engine,
+   a ``"recompute"`` drill that finishes every request with its
+   re-prefills on #1, both page ledgers balanced; (c) 16 chat requests
+   sharing a 1024-token system prompt: exactly 15 hits and 15 x 1024
+   tokens saved, 12 launches with the store on, TTFT p50/p95 on and off,
+   a hit's first-token logits within ``TOL_PREFIX_LOGITS`` of the whole
+   prefill's, f32 hits token-equal; one 2040-token prompt in chunks of
+   256 beside live decodes that gain tokens between its chunks; (d)
+   speculation on prompts repeating a 64-token motif (n-gram, the model
+   as its own draft, a 2-layer draft): accept rates and tokens/s, the
+   f32 self-draft accepting every proposal; (e) a prefix exported,
+   packed, unpacked and imported into a second engine gives the
+   monolithic engine's tokens; a swap mid-run adds no program key and
+   empties the store; (f) the telemetry's token and prefix counters
+   equal the results.  bf16 paths that read one attention two ways are
+   held by ``DIVERGE_MARGIN``; #1 is held against its plain version at
+   the phase's new shapes;
+13. print the kernel table as one JSON line, then the device line last.
 
 Exits nonzero without a CUDA device, and where the package is missing
 beside this file.  ``--out`` also writes the per-shape details as JSON.
@@ -4130,6 +4153,521 @@ def _data_phase(seed, torch, np, gn):
     return res, res["ooc"]["launches"], res["ooc"]["routes"]
 
 
+# ---- phase 12: the serving arms ---------------------------------------
+#
+# phase 3's model and weights (L12, d768, 12 heads, 4 KV heads, vocab
+# 32768, max_len 2048, bf16, flash prefill), not cut, through every arm
+# of DecodeEngine: the int8 KV cache, paged KV with its QoS, the prefix
+# store and chunked prefill, speculative decoding, a weight swap and the
+# KV-block handoff; f32 copies of the same weights where tokens must be
+# equal across two spellings of one attention
+
+# a prefix hit's first-token logits against the whole-prompt prefill's,
+# in norm: |hit - whole| <= TOL_PREFIX_LOGITS * |whole|, the flash
+# forward's bf16 limit taken relative: the hit reads its tail densely
+# (its attention logits rounded to bf16), the whole prompt runs #1 (f32
+# logits); the worst logit's |diff| / (|whole| + rms) is reported beside
+# it (PERF.md §2)
+TOL_PREFIX_LOGITS = 2e-2
+# bf16 paths that read one attention through two spellings (#1 against
+# the dense read, a T=1 step against a [1, k+1] verify) may part at a
+# near-tie: at each first divergence the reference's top-2 logit margin
+# must be at most this (PERF.md §2)
+DIVERGE_MARGIN = 0.125
+ARMS_SYSTEM = 1024      # the chat traffic's shared system prompt
+ARMS_PAGE = 128
+
+
+def _lm_model(tree, **over):
+    """The LM of ``LM`` (with ``over``) on the card, weights from the flax
+    ``tree`` through ``convert.params_from_flax``."""
+    from distkeras_tpu_torch import build_model, convert
+    from distkeras_tpu_torch.models import model_config
+
+    cfg = {**LM, **over}
+    model = build_model(model_config("transformer_lm", (cfg["max_len"],),
+                                     input_dtype="int32", **cfg)).eval()
+    model.load_state_dict(convert.params_from_flax(tree))
+    return model
+
+
+def _margin(model, prompt, want, j, torch, np):
+    """The reference's top-2 logit margin for its token ``j``: prompt and
+    its first ``j`` tokens prefilled, the next token's logits."""
+    from distkeras_tpu_torch.models.generate import prefill
+
+    ext = np.concatenate([prompt, want[:j]]).astype(np.int64)
+    with torch.no_grad():
+        cache = model.new_cache(1)
+        logits = prefill(model, torch.as_tensor(
+            ext, device=model.embed.weight.device)[None], cache)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _agree(model, reqs, got, want, torch, np, what, exact=False):
+    """Per-request token agreement of ``got`` against the reference
+    ``want``; exact, or each first divergence's reference margin at most
+    ``DIVERGE_MARGIN``.  Returns the counts and margins."""
+    same, margins = 0, []
+    for r in reqs:
+        i = r["i"]
+        g, w = np.asarray(got[i]), np.asarray(want[i])
+        if len(g) != r["max_new_tokens"] or len(w) != len(g):
+            raise SystemExit(f"{what}: request {i} gave {len(g)} tokens "
+                             f"against {len(w)}")
+        if np.array_equal(g, w):
+            same += 1
+            continue
+        j = int(np.argmax(g != w))
+        if exact:
+            raise SystemExit(f"{what}: request {i} differs at token {j} "
+                             f"of {len(g)}")
+        m = _margin(model, r["prompt"], w, j, torch, np)
+        margins.append({"i": i, "token": j, "margin": m})
+        if m > DIVERGE_MARGIN:
+            raise SystemExit(f"{what}: request {i} parts at token {j} "
+                             f"where the reference's top-2 margin is "
+                             f"{m:.4f} > {DIVERGE_MARGIN}")
+    print(f"arms: {what}: {same}/{len(reqs)} requests token-equal"
+          + (f", first divergences {margins}" if margins else ""))
+    return {"equal": same, "of": len(reqs), "divergences": margins}
+
+
+def _spans(tel, name):
+    return [e for e in tel.tracer.events() if e["name"] == name]
+
+
+def _serve_arms(seed, torch, np, attention, reqs, tokens, serve_tps):
+    """Phase 12: the serving arms; see the module docstring.  ``reqs``,
+    ``tokens`` and ``serve_tps`` are phase 3's requests, greedy tokens
+    and tokens/s.  Returns the numbers, #1's launches on the phase's
+    main paths and the check rows of #1 at the phase's new shapes."""
+    import copy
+
+    from distkeras_tpu_torch import DecodeEngine, generate, telemetry
+    from distkeras_tpu_torch.models.generate import prefill
+    from distkeras_tpu_torch.serving import pack_kv_blocks, unpack_kv_blocks
+
+    t_phase = time.monotonic()
+    res: dict = {"card": _card_line()}
+    launches = 0
+    new_shapes: set = set()
+    hd, layers, vocab = LM["d_model"] // LM["num_heads"], LM["num_layers"], \
+        LM["vocab_size"]
+    tree = _flax_tree(np.random.default_rng(seed + 1), LM)  # phase 3's
+    model = _lm_model(tree)
+    kw = dict(slots=8, buckets=[512, 2048], prefill_align=128)
+    warm = [{"prompt": reqs[0]["prompt"], "max_new_tokens": 2, "i": -1}]
+
+    def served(engine, items, ordered=True):
+        nonlocal launches
+        _reset_counts(attention)
+        t0 = time.monotonic()
+        out = {r["i"]: r for r in engine.run(items, ordered=ordered)}
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        n = attention.launches
+        launches += n
+        for r in out.values():
+            if "error" in r:
+                raise SystemExit(f"arms: request {r['i']} failed: "
+                                 f"{r['error']}")
+        return out, wall, n
+
+    def toks(out):
+        return {i: r["tokens"] for i, r in out.items()}
+
+    def tps(out, wall):
+        return sum(len(r["tokens"]) for r in out.values()) / wall
+
+    def need(n, want, what):
+        if n != want:
+            raise SystemExit(f"arms: {what}: flash kernel launched {n} "
+                             f"times; expected {want}")
+
+    # (a) int8 KV: phase 3's traffic
+    m8 = _lm_model(tree, kv_cache_dtype="int8")
+    e8 = DecodeEngine(m8, **kw)
+    list(e8.run(warm))
+    out8, wall8, n8 = served(e8, reqs)
+    need(n8, layers * len(reqs), "int8 engine")
+    want8 = {r["i"]: generate(m8, r["prompt"][None],
+                              max_new_tokens=r["max_new_tokens"]
+                              )[0, len(r["prompt"]):].cpu().numpy()
+             for r in reqs}
+    res["int8"] = {"agree_generate": _agree(m8, reqs, toks(out8), want8,
+                                            torch, np, "int8 engine vs "
+                                            "int8 generate()", exact=True)}
+    e_bf = DecodeEngine(model, **kw)
+
+    def pool_bytes(engine):
+        return sum(t.numel() * t.element_size() for p in engine._pools
+                   for t in p.cache.leaves())
+
+    res["int8"].update({
+        "kv_pool_bytes": pool_bytes(e8), "bf16_kv_pool_bytes":
+        pool_bytes(e_bf), "kv_ratio": pool_bytes(e8) / pool_bytes(e_bf),
+        "tokens_per_s": tps(out8, wall8), "bf16_tokens_per_s": serve_tps,
+        "launches": n8})
+    print(f"arms: int8: KV pools {res['int8']['kv_pool_bytes']} against "
+          f"{res['int8']['bf16_kv_pool_bytes']} bytes "
+          f"({res['int8']['kv_ratio']:.4f}), {res['int8']['tokens_per_s']:.1f}"
+          f" tokens/s against phase 3's {serve_tps:.1f}")
+    del e8, m8
+    torch.cuda.empty_cache()
+
+    # (b) paged: phase 3's traffic, step time against the envelope engine
+    list(e_bf.run(warm))
+    ep = DecodeEngine(model, kv_pages=256, page_size=ARMS_PAGE, **kw)
+    list(ep.run(warm))
+    step_ms = {}
+    for name, engine in (("envelope", e_bf), ("paged", ep)):
+        tel = telemetry.enable()
+        try:
+            out, wall, n = served(engine, reqs)
+            step_ms[name] = [e["dur"] / 1e3 for e in _spans(tel, "decode_step")]
+        finally:
+            telemetry.disable()
+        need(n, layers * len(reqs), f"{name} engine")
+        _agree(model, reqs, toks(out), tokens, torch, np,
+               f"{name} engine vs phase 3", exact=True)
+        res[f"{name}_tokens_per_s"] = tps(out, wall)
+    st = ep.paging_stats()
+    if st["allocated_total"] != st["freed_total"] or ep.free_pages() != 256:
+        raise SystemExit(f"arms: paged ledger unbalanced: {st}")
+    res["paged"] = {"step_ms": float(np.mean(step_ms["paged"])),
+                    "envelope_step_ms": float(np.mean(step_ms["envelope"])),
+                    "steps": len(step_ms["paged"]),
+                    "tokens_per_s": res.pop("paged_tokens_per_s"),
+                    "envelope_tokens_per_s": res.pop(
+                        "envelope_tokens_per_s")}
+    print(f"arms: paged: step {res['paged']['step_ms']:.3f} ms against "
+          f"the envelope's {res['paged']['envelope_step_ms']:.3f} ms over "
+          f"{res['paged']['steps']} steps; tokens equal phase 3's")
+    del ep
+
+    # the preemption drills: one bucket of 4 slots, 4 priority-0 requests
+    # fill a 20-page pool, then 2 priority-2 arrivals need pages
+    rng = np.random.default_rng(seed + 12)
+    drill = [{"prompt": rng.integers(0, vocab, (t,)), "max_new_tokens": n,
+              "i": i, "priority": p}
+             for i, (t, n, p) in enumerate(((600, 48, 0), (590, 48, 0),
+                                            (610, 48, 0), (520, 48, 0),
+                                            (200, 32, 2), (150, 32, 2)))]
+    dkw = dict(slots=4, buckets=[2048], prefill_align=128)
+
+    def run_drill(engine):
+        nonlocal launches
+        _reset_counts(attention)
+        for r in drill[:4]:
+            engine.submit(r["prompt"], max_new_tokens=r["max_new_tokens"],
+                          priority=r["priority"], meta={"i": r["i"]})
+        out = {r["i"]: r for r in engine.step()}
+        for r in drill[4:]:
+            engine.submit(r["prompt"], max_new_tokens=r["max_new_tokens"],
+                          priority=r["priority"], meta={"i": r["i"]})
+        out.update({r["i"]: r for r in engine.drain()})
+        torch.cuda.synchronize()
+        launches += attention.launches
+        for r in out.values():
+            if "error" in r:
+                raise SystemExit(f"arms: drill request {r['i']} failed: "
+                                 f"{r['error']}")
+        return out, attention.launches
+
+    ref, n_ref = run_drill(DecodeEngine(model, **dkw))
+    need(n_ref, layers * len(drill), "drill, envelope")
+    for mode in ("swap", "recompute"):
+        tel = telemetry.enable()
+        try:
+            engine = DecodeEngine(model, kv_pages=20, page_size=ARMS_PAGE,
+                                  preemption=mode, **dkw)
+            out, n = run_drill(engine)
+            m = tel.metrics
+            pre = m.sum_counter("serving_preemptions_total")
+            readmit = m.sum_counter("serving_readmissions_total")
+            padded = [e["args"]["padded"] for e in _spans(tel, "prefill")]
+        finally:
+            telemetry.disable()
+        st = engine.paging_stats()
+        if pre < 1 or readmit < 1:
+            raise SystemExit(f"arms: {mode} drill preempted {pre} and "
+                             f"readmitted {readmit} requests")
+        if (st["allocated_total"] != st["freed_total"]
+                or engine.free_pages() != 20):
+            raise SystemExit(f"arms: {mode} drill ledger unbalanced: {st}")
+        if mode == "swap":
+            need(n, layers * len(drill), "swap drill")
+            agree = _agree(model, drill, toks(out), toks(ref), torch, np,
+                           "swap drill vs the envelope engine", exact=True)
+        else:
+            # every re-prefill runs #1 on prompt + generated tokens
+            need(n, layers * (len(drill) + int(readmit)), "recompute drill")
+            new_shapes.update((1, LM["num_heads"], t, hd) for t in padded)
+            agree = _agree(model, drill, toks(out), toks(ref), torch, np,
+                           "recompute drill vs the envelope engine")
+        res[f"{mode}_drill"] = {"preemptions": pre, "readmissions": readmit,
+                                "launches": n, "agree": agree,
+                                "prefill_padded": padded,
+                                "pages": st["allocated_total"]}
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) prefix store and chunked prefill: chat traffic sharing a system
+    # prompt; TTFT with the store on and off
+    system = rng.integers(0, vocab, (ARMS_SYSTEM,))
+    chat = [{"prompt": np.concatenate([system, rng.integers(
+                0, vocab, (int(t),))]), "max_new_tokens": 32, "i": i}
+            for i, t in enumerate(rng.integers(64, 513, size=16))]
+    e_off = DecodeEngine(model, **kw)
+    list(e_off.run(warm))
+    off, _, n_off = served(e_off, chat)
+    need(n_off, layers * len(chat), "store off")
+    tel = telemetry.enable()
+    try:
+        e_on = DecodeEngine(model, prefix_cache_bytes=1 << 30, **kw)
+        warm_out = list(e_on.run(warm))
+        on, _, n_first = served(e_on, chat[:1])
+        rest, _, n_rest = served(e_on, chat[1:])
+        on.update(rest)
+        m = tel.metrics
+        st = e_on.prefix_stats()
+        n_tok = sum(len(r["tokens"]) for r in (*warm_out, *on.values()))
+        tele = {"tokens_total": m.sum_counter("serving_tokens_total"),
+                "tokens_returned": n_tok,
+                "hits": m.sum_counter("serving_prefix_hits_total"),
+                "misses": m.sum_counter("serving_prefix_misses_total"),
+                "tokens_saved": m.sum_counter(
+                    "serving_prefill_tokens_saved_total")}
+    finally:
+        telemetry.disable()
+    # (f) the registry counts what the results and the store hold
+    if (tele["tokens_total"] != n_tok or tele["hits"] != st["hits"]
+            or tele["misses"] != st["misses"]
+            or tele["tokens_saved"] != st["tokens_saved"]):
+        raise SystemExit(f"arms: telemetry {tele} against the results and "
+                         f"{st}")
+    if st["hits"] != 15 or st["tokens_saved"] != 15 * ARMS_SYSTEM:
+        raise SystemExit(f"arms: prefix store {st}: expected 15 hits of "
+                         f"{ARMS_SYSTEM} tokens")
+    need(n_first + n_rest, layers, "store on (one whole prefill)")
+    ttft = {k: [float(v) for v in np.percentile(
+        [r["ttft"] for i, r in out.items() if i > 0], [50, 95])]
+        for k, out in (("on", on), ("off", off))}
+    res["prefix"] = {
+        "stats": st, "telemetry": tele, "launches": n_first + n_rest,
+        "launches_store_off": n_off,
+        "ttft_p50_s": ttft["on"][0], "ttft_p95_s": ttft["on"][1],
+        "off_ttft_p50_s": ttft["off"][0], "off_ttft_p95_s": ttft["off"][1],
+        "agree": _agree(model, chat, toks(on), toks(off), torch, np,
+                        "prefix hits vs whole prefills")}
+    print(f"arms: prefix: {st['hits']} hits, {st['tokens_saved']} tokens "
+          f"saved; TTFT p50/p95 (requests 1-15) {ttft['on'][0]:.4f}/"
+          f"{ttft['on'][1]:.4f} s on against {ttft['off'][0]:.4f}/"
+          f"{ttft['off'][1]:.4f} s off")
+    # a hit's first-token logits: chat[0]'s whole prefill supplies the
+    # blocks, the tail reads them densely, as the engine runs it
+    dense = copy.copy(model)
+    dense.attn, dense.attn_fn = "dense", None
+    dense.flash_attn = dense.blockwise_attn = False
+    worst = worst_elem = 0.0
+    dev = model.embed.weight.device
+    with torch.no_grad():
+        src = model.new_cache(1)
+        prefill(model, torch.as_tensor(chat[0]["prompt"], device=dev)[None],
+                src)
+        for r in chat[1:4]:
+            p = torch.as_tensor(r["prompt"], device=dev)[None]
+            whole = prefill(model, p, model.new_cache(1))[0]
+            hit = model.new_cache(1)
+            for a, b in zip(hit.leaves(), src.leaves()):
+                a[:, :, :ARMS_SYSTEM] = b[:, :, :ARMS_SYSTEM]
+            t_p = p.shape[1]
+            t_pad = -(-t_p // 128) * 128
+            tail = torch.zeros(1, t_pad - ARMS_SYSTEM, dtype=torch.long,
+                               device=dev)
+            tail[0, :t_p - ARMS_SYSTEM] = p[0, ARMS_SYSTEM:]
+            hit.index = ARMS_SYSTEM
+            logits, _ = dense(tail, cache=hit,
+                              last_index=t_p - 1 - ARMS_SYSTEM)
+            diff = logits[0, -1].float() - whole
+            rel = (diff.norm() / whole.norm()).item()
+            elem = (diff.abs() / (whole.abs() + whole.pow(2).mean().sqrt())
+                    ).max().item()
+            worst = max(worst, rel)
+            worst_elem = max(worst_elem, elem)
+    res["prefix"]["logit_rel"] = worst
+    res["prefix"]["logit_elem_ratio"] = worst_elem
+    print(f"arms: prefix-hit first-token logits against whole prefills: "
+          f"|diff| / |whole| {worst:.5f} (limit {TOL_PREFIX_LOGITS}); per "
+          f"logit |diff| / (|whole| + rms) at most {worst_elem:.5f}")
+    if worst > TOL_PREFIX_LOGITS:
+        raise SystemExit("arms: prefix-hit logits off the whole prefill's")
+    del e_off
+    torch.cuda.empty_cache()
+
+    # one long prompt in chunks of 256 beside three live decodes: the
+    # neighbours gain tokens between its chunks
+    ec = DecodeEngine(model, slots=4, buckets=[2048], prefill_align=128,
+                      prefill_chunk=256)
+    long = {"prompt": rng.integers(0, vocab, (2040,)), "max_new_tokens": 8,
+            "i": 9}
+    side = [{"prompt": rng.integers(0, vocab, (200,)), "max_new_tokens": 64,
+             "i": i} for i in range(3)]
+    _reset_counts(attention)
+    for r in side:
+        ec.submit(r["prompt"], max_new_tokens=64, meta={"i": r["i"]})
+    out = {}
+    for _ in range(len(side) + 1):  # one chunk a step: all decoding
+        out.update({r["i"]: r for r in ec.step()})
+    ec.submit(long["prompt"], max_new_tokens=8, meta={"i": 9})
+    pool = ec._pools[0]
+    gains, chunks = [], 0
+    while ec.has_work():
+        before = [len(q.tokens) for q in pool.reqs if q is not None
+                  and q.meta["i"] < 9]
+        mid = any(q is not None and q.meta["i"] == 9
+                  for q in pool.reqs) and bool(pool.prefilling)
+        out.update({r["i"]: r for r in ec.step()})
+        if mid:
+            chunks += 1
+            after = [len(q.tokens) for q in pool.reqs if q is not None
+                     and q.meta["i"] < 9]
+            gains.append(sum(after) - sum(before)
+                         if len(after) == len(before) else len(before))
+    torch.cuda.synchronize()
+    n_chunk = attention.launches
+    launches += n_chunk
+    # with chunking on every prefill is a dense chunk: no #1
+    need(n_chunk, 0, "chunked prefill beside decodes")
+    if chunks < 7 or min(gains) < 1:
+        raise SystemExit(f"arms: neighbours gained {gains} tokens over "
+                         f"{chunks} chunk steps")
+    whole_long = generate(model, long["prompt"][None], max_new_tokens=8
+                          )[0, 2040:].cpu().numpy()
+    res["chunked"] = {"chunk_steps": chunks, "neighbour_gains": gains,
+                      "agree": _agree(model, [long], {9: out[9]["tokens"]},
+                                      {9: whole_long}, torch, np,
+                                      "chunked 2040-token prompt vs "
+                                      "generate()")}
+    del ec
+
+    # f32: the same weights, TF32 off; tokens equal across spellings
+    m32 = _lm_model(tree, dtype="float32")
+    chat32 = [{**r, "max_new_tokens": 8} for r in chat[:4]]
+    base32, _, n32 = served(DecodeEngine(m32, **kw), chat32)
+    e32 = DecodeEngine(m32, prefix_cache_bytes=1 << 30, **kw)
+    on32, _, n_a = served(e32, chat32[:1])
+    rest32, _, n_b = served(e32, chat32[1:])
+    on32.update(rest32)
+    need(n32 + n_a + n_b, layers * (len(chat32) + 1), "f32 store on/off")
+    res["prefix"]["f32_agree"] = _agree(m32, chat32, toks(on32),
+                                        toks(base32), torch, np,
+                                        "f32 prefix hits vs whole prefills",
+                                        exact=True)
+
+    # (d) speculation: prompts that repeat a 64-token motif
+    motif = rng.integers(0, vocab, (64,))
+    spec_reqs = [{"prompt": np.tile(motif, 16)[:int(t)],
+                  "max_new_tokens": 32, "i": i}
+                 for i, t in enumerate(rng.integers(256, 1025, size=8))]
+    dtree = _flax_tree(np.random.default_rng(seed + 13),
+                       {**LM, "num_layers": 2})
+    draft2 = _lm_model(dtree, num_layers=2)
+    base, wall, n = served(DecodeEngine(model, **kw), spec_reqs)
+    res["spec"] = {"base_tokens_per_s": tps(base, wall)}
+    for name, spec in (("ngram", {"proposer": "ngram", "k": 4}),
+                       ("self_draft", {"proposer": "draft", "k": 4,
+                                       "draft_model": model}),
+                       ("draft_2l", {"proposer": "draft", "k": 4,
+                                     "draft_model": draft2})):
+        tel = telemetry.enable()
+        try:
+            engine = DecodeEngine(model, speculative=spec, **kw)
+            out, wall, n = served(engine, spec_reqs)
+            dpad = [e["args"]["padded"]
+                    for e in _spans(tel, "draft_prefill")]
+        finally:
+            telemetry.disable()
+        n_draft = len(dpad) * spec.get("draft_model", model).num_layers \
+            if name != "ngram" else 0
+        need(n, layers * len(spec_reqs) + n_draft, f"spec {name}")
+        new_shapes.update((1, LM["num_heads"], t, hd) for t in dpad
+                          if t % 128 == 0)
+        st = engine.spec_stats()
+        res["spec"][name] = {
+            "accept_rate": st["accept_rate"], "proposed": st["proposed"],
+            "accepted": st["accepted"], "tokens_per_s": tps(out, wall),
+            "launches": n, "draft_prefills": len(dpad),
+            "agree": _agree(model, spec_reqs, toks(out), toks(base), torch,
+                            np, f"spec {name} vs no speculation")}
+        print(f"arms: spec {name}: accept rate {st['accept_rate']}, "
+              f"{res['spec'][name]['tokens_per_s']:.1f} tokens/s against "
+              f"{res['spec']['base_tokens_per_s']:.1f}")
+    del engine
+    spec32 = [{**r, "max_new_tokens": 16} for r in spec_reqs[:3]]
+    base32, _, _ = served(DecodeEngine(m32, **kw), spec32)
+    e32 = DecodeEngine(m32, speculative={"proposer": "draft", "k": 4,
+                                         "draft_model": m32}, **kw)
+    out32, _, _ = served(e32, spec32)
+    st = e32.spec_stats()
+    res["spec"]["f32_self_draft"] = {
+        "accept_rate": st["accept_rate"], "proposed": st["proposed"],
+        "agree": _agree(m32, spec32, toks(out32), toks(base32), torch, np,
+                        "f32 self-draft vs no speculation", exact=True)}
+    if st["accept_rate"] != 1.0:
+        raise SystemExit(f"arms: f32 self-draft accept rate "
+                         f"{st['accept_rate']}; expected 1.0")
+    del e32, m32, base32, draft2
+    torch.cuda.empty_cache()
+
+    # (e) the handoff between two engines, then a swap mid-run
+    e1 = DecodeEngine(model, prefix_cache_bytes=1 << 30, **kw)
+    served(e1, chat[:1])
+    export = e1.export_prefix(chat[1]["prompt"])
+    wire = b"".join(bytes(p) for p in pack_kv_blocks(export))
+    back = unpack_kv_blocks(wire)
+    e2 = DecodeEngine(model, prefix_cache_bytes=1 << 30, **kw)
+    installed = e2.import_prefix(back["prompt"], back["blocks"],
+                                 weights_ver=back["weights_ver"])
+    if installed != ARMS_SYSTEM // 128:
+        raise SystemExit(f"arms: import installed {installed} blocks")
+    got2, _, _ = served(e2, chat[1:2])
+    got1, _, _ = served(e1, chat[1:2])
+    hand = _agree(model, chat[1:2], toks(got2), toks(got1), torch, np,
+                  "imported blocks vs the monolithic engine", exact=True)
+    for r in chat[2:4]:
+        e1.submit(r["prompt"], max_new_tokens=32, meta={"i": r["i"]})
+    e1.step()
+    keys = e1.compile_counts
+    e1.swap_variables({k: v * 1.0078125 for k, v in e1.variables.items()})
+    st = e1.prefix_stats()
+    e1.drain()
+    st_after = e1.prefix_stats()
+    if (e1.compile_counts != keys or st["nodes"] != 0
+            or st["invalidations"] != 1 or st_after["nodes"] != 0):
+        raise SystemExit(f"arms: swap added keys or left the store: "
+                         f"{st} {st_after}")
+    res["handoff"] = {"wire_bytes": len(wire), "blocks": installed,
+                      "agree": hand, "swap_store": st_after}
+    print(f"arms: handoff: {installed} blocks in a {len(wire)}-byte frame, "
+          f"tokens equal the monolithic engine's; the swap added no key "
+          f"and emptied the store")
+    del e1, e2, e_on, e_bf, model
+    torch.cuda.empty_cache()
+
+    # #1 at the phase's new shapes against its plain version
+    checked = sorted(new_shapes)
+    rows = _check_attention(attention, torch, checked) if checked else []
+    res["checked_shapes"] = [list(s) for s in checked]
+    res["launches"] = launches
+    res["phase_s"] = time.monotonic() - t_phase
+    print(f"arms: {launches} launches of #1 on the phase's paths; phase "
+          f"took {res['phase_s']:.1f} s")
+    return res, launches, rows
+
+
 def _gn_summary(timing, mix, pre):
     """The ``kernels`` line's fields of a GroupNorm kernel: times
     launch-weighted over the path's (shape, ReLU) mix, the two-pass
@@ -4276,6 +4814,8 @@ def main() -> int:
     engine.close()
     n_tok = sum(len(r["tokens"]) for r in results)
     ttft = np.percentile([r["ttft"] for r in results], [50, 95])
+    serve_tps = n_tok / wall
+    serve_tokens = {r["i"]: r["tokens"] for r in results}
     print(f"serve: requests={len(results)} tokens={n_tok} "
           f"tokens_per_s={n_tok / wall:.1f} wall_s={wall:.3f} "
           f"ttft_p50_s={ttft[0]:.4f} ttft_p95_s={ttft[1]:.4f}")
@@ -4381,7 +4921,14 @@ def main() -> int:
     data, data_counts, data_routes = _data_phase(args.seed, torch, np, gn)
     torch.cuda.empty_cache()
 
-    # ---- 12. kernel table --------------------------------------------
+    # ---- 12. the serving arms -----------------------------------------
+    arms, arms_launches, arms_rows = _serve_arms(
+        args.seed, torch, np, attention, reqs, serve_tokens, serve_tps)
+    torch.cuda.empty_cache()
+    rows += arms_rows
+    max_err = max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+
+    # ---- 13. kernel table --------------------------------------------
     # the forward kernel's numbers are launch-weighted over both paths'
     # shapes (phase 4 checked the training path's counts), and over each
     # path's own: the serving prefills and the training shape; the
@@ -4402,10 +4949,12 @@ def main() -> int:
                  if timing[s]["bound_by"] == "operations")
     by_path = {k: {"serve": serve_counts[k], "train": train_counts[k]}
                for k in train_counts}
+    by_path["flash_attention_fwd"]["serve_arms"] = arms_launches
     kernels = [{"name": "flash_attention_fwd", "route": "cuda",
                 "source": "distkeras_tpu_torch/csrc/flash_attention_fwd.cu",
                 "replaces": "distkeras_tpu/ops/attention.py:76",
-                "launches": launches + train_counts["flash_attention_fwd"],
+                "launches": (launches + train_counts["flash_attention_fwd"]
+                             + arms_launches),
                 "launches_by_path": by_path["flash_attention_fwd"],
                 "max_abs_err": max_err, "max_err": max_err,
                 "ms": mean("ms"), "plain_ms": mean("plain_ms"),
@@ -4566,7 +5115,7 @@ def main() -> int:
                            for k, v in hop_timing.items()],
             "seq_train": seq, "trainer_family": family,
             "checkpoint": ckpt, "host_ps": host, "data": data,
-            "kernels": kernels},
+            "serve_arms": arms, "kernels": kernels},
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,13 @@
 
 On an NVIDIA H100: ``SingleTrainer`` and ``SyncTrainer`` train
 ``TransformerLM`` and the MLP, ConvNet and ResNet, ``DecodeEngine``
-serves the LM, the parameter-server family (``DOWNPOUR``, ``ADAG``,
-``DynSGD``, ``AEASGD``, ``EAMSGD``) trains through the emulated commit
-rounds, and ``EnsembleTrainer``/``AveragingTrainer`` train members on
-disjoint shards.  The trainers checkpoint and resume in the JAX
+serves the LM (int8 KV, the prefix store, chunked prefill, paged KV
+with its QoS, speculative decoding, hot weight swaps and the KV-block
+handoff of ``serving.pack_kv_blocks``), the parameter-server family
+(``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``, ``EAMSGD``) trains
+through the emulated commit rounds, and
+``EnsembleTrainer``/``AveragingTrainer`` train members on disjoint
+shards.  The trainers checkpoint and resume in the JAX
 package's file format (``checkpoint.py``), either package reading the
 other's files, and ``predictors.ModelPredictor`` and ``evaluators``
 score a ``Dataset``.  Every trainer also streams out-of-core npz and

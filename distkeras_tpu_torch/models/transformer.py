@@ -1,8 +1,8 @@
 """Decoder-only Transformer LM, the port of
 ``distkeras_tpu/models/transformer.py`` (dense, flash and blockwise
 attention, a custom ``attn_fn``, sequence parallelism over a ring
-(``seq_axis``), GQA, the decode-mode KV cache, slot mode,
-``cache_envelope``).
+(``seq_axis``), GQA, the decode-mode KV cache and its int8 form, slot
+mode, ``cache_envelope``).
 
 Parameters are held in the compute dtype except the LayerNorm affines
 and ``lm_head``, which stay f32: flax casts its f32 parameters to the
@@ -16,7 +16,10 @@ passed in and returned by ``forward``: per layer ``[B, KVH, L, D]``
 keys and values plus one scalar insertion index.  ``forward`` writes
 the cache IN PLACE, so a caller that passes views of a larger pool
 (``serving.DecodeEngine`` passes one slot's rows) updates that pool
-without a copy.
+without a copy.  ``kv_cache_dtype="int8"`` stores the cache quantized
+per position and head (``_quantize_kv``, with ``[B, KVH, L, 1]`` f32
+scales); a prefill through the kernel attends on the raw projections,
+the dense read factors the scales out of both contractions.
 """
 
 from __future__ import annotations
@@ -67,20 +70,77 @@ def dense_causal_attention(q, k, v, *, scale):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _quantize_kv(x):
+    """Symmetric int8 quantization of a K/V chunk per row of its last
+    axis (batch, position, head): ``(int8 values, f32 scales [..., 1])``
+    with scale ``amax / 127`` and round half to even, as
+    ``jnp.round``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.where(scale > 0.0, xf / scale.clamp_min(1e-30),
+                    torch.zeros_like(xf))
+    return torch.round(q).clamp(-127, 127).to(torch.int8), scale
+
+
+def flax_layer_order(n: int) -> list:
+    """Layer indices in the flax cache tree's flatten order: its
+    ``Block_{i}`` keys sort as strings (``Block_10`` before
+    ``Block_2``)."""
+    return sorted(range(n), key=lambda i: f"Block_{i}")
+
+
 class KVCache:
     """Decode-mode cache: ``keys[i]``/``values[i]`` are layer ``i``'s
     ``[B, KVH, L, D]`` tensors; ``index`` is the scalar insertion
     position of the scalar-index contract (slot mode leaves it be:
-    each row's position comes with the call)."""
+    each row's position comes with the call).  An int8 cache also holds
+    ``key_scales[i]``/``value_scales[i]``, ``[B, KVH, L, 1]`` f32."""
 
-    def __init__(self, keys: list, values: list, index: int = 0):
+    def __init__(self, keys: list, values: list, index: int = 0,
+                 key_scales: Optional[list] = None,
+                 value_scales: Optional[list] = None):
         self.keys = keys
         self.values = values
         self.index = int(index)
+        self.key_scales = key_scales
+        self.value_scales = value_scales
 
     @property
     def length(self) -> int:
         return self.keys[0].shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.key_scales is not None
+
+    def leaves(self) -> list:
+        """The 4-D tensors in the flax cache tree's flatten order: per
+        layer (``flax_layer_order``) ``cached_key``, ``cached_value``
+        and, int8, ``key_scale``, ``value_scale``."""
+        out = []
+        for i in flax_layer_order(len(self.keys)):
+            out += [self.keys[i], self.values[i]]
+            if self.quantized:
+                out += [self.key_scales[i], self.value_scales[i]]
+        return out
+
+    @classmethod
+    def from_leaves(cls, leaves: list, quantized: bool,
+                    index: int = 0) -> "KVCache":
+        """Inverse of ``leaves``."""
+        per = 4 if quantized else 2
+        n = len(leaves) // per
+        slots: list = [[None] * n for _ in range(per)]
+        for j, i in enumerate(flax_layer_order(n)):
+            for f in range(per):
+                slots[f][i] = leaves[j * per + f]
+        return cls(slots[0], slots[1], index,
+                   *(slots[2:] if quantized else ()))
+
+    def rows(self, lo: int, hi: int) -> "KVCache":
+        """Views of batch rows ``lo:hi``: writes land in this cache."""
+        return KVCache.from_leaves([t[lo:hi] for t in self.leaves()],
+                                   self.quantized, self.index)
 
 
 class LayerNorm(nn.Module):
@@ -153,6 +213,12 @@ class SelfAttention(nn.Module):
         b, t = q.shape[:2]
         hd, kvh, group = self.head_dim, self.kvh, self.group
         keys, vals = cache.keys[layer], cache.values[layer]
+        writes = [(keys, k), (vals, v)]
+        if cache.quantized:
+            k_w, k_s = _quantize_kv(k)
+            v_w, v_s = _quantize_kv(v)
+            ks, vs = cache.key_scales[layer], cache.value_scales[layer]
+            writes = [(keys, k_w), (vals, v_w), (ks, k_s), (vs, v_s)]
         length = keys.shape[2]
         idx = cache.index
         if slot_pos is not None:
@@ -165,7 +231,7 @@ class SelfAttention(nn.Module):
             ok = slot_pos < length                             # [B]
             pos = slot_pos.clamp(max=length - 1)
             rows = torch.arange(b, device=q.device)
-            for cache_t, new in ((keys, k), (vals, v)):
+            for cache_t, new in writes:
                 old = cache_t[rows, :, pos]                     # [B,KVH,D]
                 cache_t[rows, :, pos] = torch.where(
                     ok[:, None, None], new[:, 0], old)
@@ -173,12 +239,13 @@ class SelfAttention(nn.Module):
             # an overflowing write lands clamped (as a dynamic update
             # slice does) and the output is poisoned below
             start = min(idx, length - t)
-            keys[:, :, start:start + t] = k.transpose(1, 2)
-            vals[:, :, start:start + t] = v.transpose(1, 2)
+            for cache_t, new in writes:
+                cache_t[:, :, start:start + t] = new.transpose(1, 2)
             ok = idx + t <= length
         if t > 1 and attn_fn is not None:
             # prefill through the kernel: causal attention within the
-            # chunk, exact iff the cache was empty
+            # chunk on the raw (unquantized) projections, exact iff the
+            # cache was empty
             kf, vf = k, v
             if group > 1:
                 kf = kf.repeat_interleave(group, dim=2)
@@ -192,10 +259,19 @@ class SelfAttention(nn.Module):
                 q_pos = (idx + torch.arange(t, device=q.device))[None]
             k_pos = torch.arange(length, device=q.device)
             mask = k_pos[None, None, :] <= q_pos[:, :, None]    # [B|1,t,L]
+            if cache.quantized:
+                # the per-row scales factor out of both contractions;
+                # the cast to the compute dtype copies the cache
+                keys, vals = keys.to(q.dtype), vals.to(q.dtype)
             qg = q.reshape(b, t, kvh, group, hd)
             logits = torch.einsum("bqhgd,bhkd->bhgqk", qg, keys) * scale
+            if cache.quantized:
+                logits = logits * ks[:, :, None, None, :, 0]
             logits = logits.masked_fill(~mask[:, None, None], _NEG)
             probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+            if cache.quantized:
+                probs = (probs.float() * vs[:, :, None, None, :, 0]
+                         ).to(q.dtype)
             out = torch.einsum("bhgqk,bhkd->bqhgd", probs, vals)
             out = out.reshape(b, t, self.num_heads, hd)
         if isinstance(ok, torch.Tensor):
@@ -263,9 +339,10 @@ class TransformerLM(nn.Module):
         super().__init__()
         if num_experts > 0:
             raise _unsupported("num_experts>0", "queue 1, parallelism")
-        if kv_cache_dtype is not None:
-            raise _unsupported(f"kv_cache_dtype={kv_cache_dtype!r}",
-                               "queue 1, serving arms")
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype={kv_cache_dtype!r} must be None "
+                "(activation dtype) or 'int8'")
         if scan_blocks:
             raise _unsupported("scan_blocks", "queue 1, LM training")
         if remat_blocks:
@@ -305,6 +382,7 @@ class TransformerLM(nn.Module):
         self.blockwise_attn, self.attn_fn = blockwise_attn, attn_fn
         self.seq_axis, self.attn_q_chunk = seq_axis, attn_q_chunk
         self.num_kv_heads = num_kv_heads
+        self.kv_cache_dtype = kv_cache_dtype
         self.decode, self.cache_envelope = decode, cache_envelope
         cd = self.compute_dtype
         # built on the meta device, so torch's own initializers draw
@@ -366,12 +444,20 @@ class TransformerLM(nn.Module):
                 f"{self.max_len}]")
         dev = device or self.embed.weight.device
         shape = (batch, self.kv_heads, length, self.head_dim)
+        store = (torch.int8 if self.kv_cache_dtype == "int8"
+                 else self.compute_dtype)
 
-        def zeros():
-            return torch.zeros(shape, dtype=self.compute_dtype, device=dev)
+        def zeros(dtype=store, d=self.head_dim):
+            return torch.zeros(shape[:3] + (d,), dtype=dtype, device=dev)
 
-        return KVCache([zeros() for _ in self.blocks],
-                       [zeros() for _ in self.blocks])
+        n = len(self.blocks)
+        if self.kv_cache_dtype != "int8":
+            return KVCache([zeros() for _ in range(n)],
+                           [zeros() for _ in range(n)])
+        return KVCache([zeros() for _ in range(n)],
+                       [zeros() for _ in range(n)], 0,
+                       [zeros(torch.float32, 1) for _ in range(n)],
+                       [zeros(torch.float32, 1) for _ in range(n)])
 
     def _local_attn_fn(self, t: int):
         """The device-local attention for length ``t`` (None: dense).

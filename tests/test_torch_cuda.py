@@ -889,3 +889,56 @@ def test_native_lane_counters_beside_the_card(card, tmp_path):
     assert native.calls == {"fnv1a_bucket": 1, "affine_scale": 1,
                             "parse_csv": 1, "dense_scatter": 0}
     assert ds["c_bucket"].dtype == np.int32 and len(ds) == 100
+
+
+def _serving_lm(**kw):
+    cfg = model_config("transformer_lm", (512,), input_dtype="int32",
+                       vocab_size=256, num_layers=2, d_model=128,
+                       num_heads=2, num_kv_heads=1, max_len=512,
+                       dtype="bfloat16", flash_attn=True, **kw)
+    torch.manual_seed(0)
+    return build_model(cfg).eval()
+
+
+_SERVE_REQS = ((30, 8), (200, 12), (129, 5), (300, 6))
+
+
+def _serving_reqs():
+    rng = np.random.default_rng(0)
+    return [{"prompt": rng.integers(0, 256, (t,)), "max_new_tokens": n}
+            for t, n in _SERVE_REQS]
+
+
+def test_int8_engine_launches_the_kernel_and_matches_generate(card):
+    """The int8 KV engine on the card: tokens equal the int8 model's
+    ``generate()`` per request, and the flash kernel runs once per layer
+    per admission (the prefill on the raw projections)."""
+    model = _serving_lm(kv_cache_dtype="int8")
+    reqs = _serving_reqs()
+    attention.launches = 0
+    res = list(DecodeEngine(model, slots=2, buckets=[256, 512]).run(reqs))
+    assert attention.launches == 2 * len(reqs)
+    for req, r in zip(reqs, res):
+        p = req["prompt"]
+        want = generate(model, p[None], max_new_tokens=req["max_new_tokens"])
+        np.testing.assert_array_equal(r["tokens"],
+                                      want[0, len(p):].cpu().numpy())
+
+
+def test_paged_engine_equals_the_envelope_engine(card):
+    """Paged KV on the card: the gather runs the envelope body on the
+    same rows, so the tokens equal the envelope engine's bit for bit,
+    with the same launches per admission and every page back."""
+    model = _serving_lm()
+    reqs = _serving_reqs()
+    kw = dict(slots=2, buckets=[256, 512], prefill_align=128)
+    attention.launches = 0
+    env = list(DecodeEngine(model, **kw).run(reqs))
+    assert attention.launches == 2 * len(reqs)
+    attention.launches = 0
+    eng = DecodeEngine(model, kv_pages=12, page_size=128, **kw)
+    paged = list(eng.run(reqs))
+    assert attention.launches == 2 * len(reqs)
+    for a, b in zip(env, paged):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    assert eng.free_pages() == 12

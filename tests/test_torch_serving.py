@@ -2,7 +2,7 @@
 package's ``DecodeEngine`` on the same weights (f32): greedy tokens
 must be EQUAL per request over two buckets and mixed prompt lengths;
 ``steps_per_sync`` changes nothing; ``queue_bound`` sheds; ``close()``
-cancels; deadlines expire; keys the port does not support raise, and
+cancels; deadlines expire; values the JAX engine refuses raise, and
 the training path's attention keys serve."""
 
 import jax
@@ -124,19 +124,23 @@ def test_deadline_expires_queued_requests(models):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("prefix_cache_bytes", 1 << 20), ("prefill_chunk", 128),
-    ("kv_pages", 8), ("speculative", {"proposer": "ngram"}),
-    ("tenant_quota", 4)])
+    ("prefix_cache_bytes", 0), ("prefill_chunk", 100),
+    ("kv_pages", 0), ("speculative", {"proposer": "beam"}),
+    ("tenant_quota", 0)])
 def test_unsupported_engine_keys_raise(models, key, value):
+    """Every serving arm is ported; a value the JAX engine refuses
+    raises ``ValueError`` naming its key."""
     _, _, port = models
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(ValueError, match=key):
         DecodeEngine(port, **{key: value})
 
 
-@pytest.mark.parametrize("key,value", [
-    ("num_experts", 4), ("kv_cache_dtype", "int8"), ("scan_blocks", True)])
-def test_unsupported_model_keys_raise(key, value):
-    with pytest.raises(NotImplementedError, match=key.split("_")[0]):
+@pytest.mark.parametrize("key,value,err", [
+    ("num_experts", 4, NotImplementedError),
+    ("kv_cache_dtype", "int4", ValueError),
+    ("scan_blocks", True, NotImplementedError)])
+def test_unsupported_model_keys_raise(key, value, err):
+    with pytest.raises(err, match=key.split("_")[0]):
         build_model(_cfg(**{key: value}), device="cpu")
 
 
@@ -160,9 +164,22 @@ def test_training_path_model_keys_serve(models, key, value):
 
 
 def test_unsupported_submit_and_methods_raise(models):
+    """``submit``'s QoS and speculation keys and the handoff methods are
+    ported: values the JAX engine refuses raise, and an engine without a
+    prefix store has nothing to export or import."""
     _, _, port = models
     eng = DecodeEngine(port, slots=1, max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="tenant"):
-        eng.submit(np.arange(3, dtype=np.int32), tenant="a")
-    with pytest.raises(NotImplementedError, match="swap_variables"):
+    p = np.arange(3, dtype=np.int32)
+    with pytest.raises(ValueError, match="priority"):
+        eng.submit(p, priority=3)
+    with pytest.raises(ValueError, match="speculative"):
+        eng.submit(p, speculative=True)
+    with pytest.raises(ValueError, match="structure mismatch"):
         eng.swap_variables({})
+    assert eng.export_prefix(p) is None
+    assert eng.import_prefix(p, [[]]) == 0 and eng.match_blocks(p) == 0
+    eng.submit(p, tenant="a", priority=2)
+    (res,) = eng.drain()
+    np.testing.assert_array_equal(res["tokens"],
+                                  _want(port, {"prompt": p,
+                                               "max_new_tokens": 2}))
